@@ -1,23 +1,37 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--profile]
 
 Run from a checkout of the repository on a machine with an NVIDIA H100.
-The first run builds the CUDA kernel from ``src/repro_torch/kernels/csrc``
-into ``build/repro_torch_kernels/``. Phases (any failure exits non-zero):
+The first run builds the CUDA kernels (every ``src/repro_torch/kernels/
+csrc/*.cu``, one library) into ``build/repro_torch_kernels/``. Phases (any
+failure exits non-zero):
 
-1. the card's name and power limit, torch/CUDA versions, the kernel build;
+1. the card's name, power limit and maximum SM clock, torch/CUDA versions,
+   the kernels' build;
 2. every kernel against its plain PyTorch version on the card, at the main
-   path's shapes, with its time, the plain version's time and its bound;
+   paths' shapes, with its time, the plain version's time and its bound:
+   the gathered kernel at the sketch's k = 1.01e7 pairs; ``online_matvec``
+   and ``online_lse`` at n = m = 2^17 (run (a)'s points), in a WFR case at
+   n = m = 2^14 with half the pairs and one whole row blocked, and over the
+   shapes of the reference's kernel tests; two launches must be bitwise
+   equal;
 3. the main path, ``solve(problem, method="spar_sink_mf")`` at n = 2^17
    (C1 measures, d = 5, float64, eps = 0.1, s = 4 s0(n)): (a) OT in the
    scaling domain, (b) OT with ``stabilize=True``, (c) UOT with masses 5/3
    and lam = 0.5, then (a) again, which must be bitwise equal; the kernel's
    launch counts are set to 0 just before each ``solve`` and read just after
    it (each scaling-domain solve must launch the kernel exactly once);
-4. accuracy at n = 8192: ``dense`` against ``log``, and the mean relative
-   error of ``spar_sink_mf`` against them over 4 seeds.
+4. accuracy at n = 8192: ``dense`` against ``log``, the mean relative
+   error of ``spar_sink_mf`` against them over 4 seeds, and the block-wise
+   objective of phase 5 validated against ``dense``;
+5. the fused dense path at n = 2^17: ``fused_sinkhorn_solve`` on run (a)'s
+   OT problem and on run (c)'s UOT problem (``fe = lam / (lam + eps)``),
+   then ``online_lse`` for the OT solution's row marginal; the counts are set
+   to 0 just before and read just after, and ``online_matvec`` must have run
+   2 launches for each iteration the loop executed; then the relative error
+   of run (a)'s ``spar_sink_mf`` value against the dense objective.
 
 ``--profile`` also runs (a) under `torch.profiler` and prints where its
 device time goes. The line before the last is a JSON object with one entry per kernel; the
@@ -37,9 +51,18 @@ from pathlib import Path
 # H100 SXM peaks (NVIDIA data sheet) for the roofline bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# exponentials (MUFU.EX2) per clock per SM on compute capability 9.0 (CUDA
+# C++ Programming Guide, arithmetic instruction throughput); times the SMs
+# and the maximum SM clock that nvidia-smi reports
+SFU_PER_CLOCK_PER_SM = 16
 
 K_TOL = dict(rtol=2e-3, atol=1e-6)  # the reference kernel tests' tolerances
 C_TOL = dict(rtol=2e-4, atol=1e-5)
+MATVEC_TOL = dict(rtol=2e-4, atol=2e-5)
+LSE_TOL = dict(rtol=2e-4, atol=5e-4)
+# the shapes (n, m, d) of the reference's online-kernel tests (tests/test_kernels.py)
+SWEEP_SHAPES = [(64, 64, 2), (256, 128, 5), (300, 257, 3), (512, 512, 50), (100, 700, 8)]
+NEG_INF = -1e30
 
 
 def check(ok: bool, what: str) -> None:
@@ -57,6 +80,14 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip()
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    )
+    return float(out.stdout.split()[0]) * 1e6
 
 
 def time_ms(fn, *, warmup: int = 3, reps: int = 20) -> float:
@@ -106,7 +137,8 @@ def _max_abs_err(out, ref) -> float:
 def check_gathered_kernel(n: int, k: int, d: int, device) -> dict:
     import torch
 
-    from repro_torch.kernels.ops import _launch_gathered_kernel, gathered_kernel
+    from repro_torch.kernels.gather_kernel import _launch_gathered_kernel
+    from repro_torch.kernels.ops import gathered_kernel
     from repro_torch.kernels.ref import gathered_kernel_ref
 
     eps = 0.1
@@ -184,14 +216,144 @@ def check_gathered_kernel(n: int, k: int, d: int, device) -> dict:
     }
 
 
+def online_bound(n: int, m: int, d: int, ops_per_pair: int, sm_clock_hz: float, sms: int):
+    """(bound ms, bound_by, detail) of a streaming kernel over n x m pairs:
+    the larger of its float32 operations at the card's float32 rate, its
+    n*m exponentials at the SFU rate, and its bytes (points, weights and
+    output each moved once) at the HBM rate."""
+    pairs = n * m
+    nbytes = 4 * ((n + m) * d + m + n)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = pairs * ops_per_pair / FP32_OPS_PER_S * 1e3
+    t_exp = pairs / (SFU_PER_CLOCK_PER_SM * sms * sm_clock_hz) * 1e3
+    bound = max(t_bytes, t_ops, t_exp)
+    detail = (f"{pairs} pairs, float32 ops {t_ops!r} ms ({ops_per_pair}/pair), exp {t_exp!r} ms "
+              f"({SFU_PER_CLOCK_PER_SM}/clock/SM x {sms} SMs at {sm_clock_hz / 1e6!r} MHz), "
+              f"bytes {t_bytes!r} ms ({nbytes} B)")
+    return bound, ("bytes" if t_bytes >= max(t_ops, t_exp) else "operations"), detail
+
+
+def _wfr_clusters(x, n: int):
+    """Two clusters of n/2 points further apart than pi * eta at eta = 0.2
+    (about half the pairs blocked) as targets y, and the same points as x
+    but for x_0, moved out of range of every target (a fully blocked row)."""
+    y = 0.2 * x[:n].clone()
+    y[n // 2:, 0] += 1.8
+    xw = y.clone()
+    xw[0, 1] += 10.0
+    return xw, y
+
+
+def check_online_kernels(n: int, device, sm_clock_hz: float) -> list[dict]:
+    """online_matvec and online_lse against their plain versions: at the
+    fused path's shape (run (a)'s points, n = m = 2^17, d = 5, eps = 0.1),
+    in a WFR case, and over the reference tests' shapes; two launches
+    bitwise equal; times of the wrapper, the bare launch and the plain
+    version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pointclouds import make_measures
+    from repro_torch.kernels.fused_sinkhorn import _launch_online_lse, _launch_online_matvec
+    from repro_torch.kernels.ops import online_lse, online_matvec
+    from repro_torch.kernels.ref import online_lse_ref, online_matvec_ref
+
+    eps, d = 0.1, 5
+    _, _, x = make_measures("C1", n, d, seed=0)
+    x = torch.as_tensor(x, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    v = torch.rand(n, dtype=torch.float64, device=device, generator=gen)
+    g = 0.1 * torch.randn(n, dtype=torch.float64, device=device, generator=gen)
+    xw, yw = _wfr_clusters(x, min(n, 1 << 14))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    kernels = [
+        ("online_matvec", online_matvec, online_matvec_ref, _launch_online_matvec, v, MATVEC_TOL,
+         "src/repro/kernels/fused_sinkhorn.py:110", 2 * d + 7),
+        ("online_lse", online_lse, online_lse_ref, _launch_online_lse, g, LSE_TOL,
+         "src/repro/kernels/fused_sinkhorn.py:142", 2 * d + 10),
+    ]
+    entries = []
+    for name, wrapper, plain, bare, w, tol, replaces, ops_per_pair in kernels:
+        out = wrapper(x, x, w, eps=eps)
+        again = wrapper(x, x, w, eps=eps)
+        ref = plain(x, x, w, eps=eps)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(out, again)), f"{name}: two launches differ")
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+        torch.testing.assert_close(out, ref, **tol)
+        err = _max_abs_err(out, ref)
+        log(f"{name} sqeuclidean n=m={n} d={d}: max_abs_err={err!r}, two launches bitwise equal")
+
+        # WFR: half the pairs blocked, row 0 blocked from every target
+        ww = w[: yw.shape[0]]
+        out_w = wrapper(xw, yw, ww, eps=eps, cost="wfr", eta=0.2)
+        ref_w = plain(xw, yw, ww, eps=eps, cost="wfr", eta=0.2)
+        torch.cuda.synchronize()
+        check(not bool(torch.isnan(out_w).any()), f"{name} wfr: NaN in the output")
+        if name == "online_matvec":
+            check(float(out_w[0]) == 0.0 and float(ref_w[0]) == 0.0, f"{name} wfr: blocked row is not 0")
+        else:
+            check(float(out_w[0]) <= NEG_INF / 2 and float(ref_w[0]) <= NEG_INF / 2,
+                  f"{name} wfr: fully blocked row {float(out_w[0])!r} is not at the -1e30 sentinel")
+        torch.testing.assert_close(out_w[1:], ref_w[1:], **tol)
+        err_w = _max_abs_err(out_w[1:], ref_w[1:])
+        blocked = sum(int((torch.cdist(yw[r:r + 4096], yw) >= math.pi * 0.2).sum())
+                      for r in range(0, yw.shape[0], 4096))
+        log(f"{name} wfr n=m={yw.shape[0]} blocked_share={blocked / yw.shape[0] ** 2!r} "
+            f"(and row 0 wholly): max_abs_err={err_w!r}, blocked row {float(out_w[0])!r}")
+
+        # the shapes of the reference's kernel tests: ragged tiles, d = 50
+        err_s = 0.0
+        for shape in SWEEP_SHAPES:
+            for cost in ("sqeuclidean", "wfr"):
+                rng = np.random.default_rng(sum(shape))
+                xs = torch.as_tensor(rng.uniform(size=shape[::2]), dtype=torch.float32, device=device)
+                ys = torch.as_tensor(rng.uniform(size=shape[1:]), dtype=torch.float32, device=device)
+                ws = torch.as_tensor(rng.uniform(size=shape[1]) if name == "online_matvec"
+                                     else 0.1 * rng.standard_normal(shape[1]),
+                                     dtype=torch.float32, device=device)
+                e = 0.1 if name == "online_matvec" else 0.05
+                o = wrapper(xs, ys, ws, eps=e, cost=cost, eta=0.3)
+                r = plain(xs, ys, ws, eps=e, cost=cost, eta=0.3)
+                torch.testing.assert_close(o, r, **tol)
+                err_s = max(err_s, _max_abs_err(o, r))
+        log(f"{name} over the reference test shapes {SWEEP_SHAPES} x (sqeuclidean, wfr): "
+            f"max_abs_err={err_s!r}")
+
+        # times at the fused path's shape: the wrapper as the loop calls it
+        # (float64 weights cast to float32), the bare launch, the plain version
+        ms = time_ms(lambda: wrapper(x, x, w, eps=eps))
+        xf, wf = x.to(torch.float32).contiguous(), w.to(torch.float32).contiguous()
+        buf = torch.empty(n, dtype=torch.float32, device=device)
+        bare_ms = time_ms(lambda: bare(xf, xf, wf, buf, eps=eps, cost="sqeuclidean", eta=1.0))
+        plain_ms = time_ms(lambda: plain(x, x, w, eps=eps), warmup=1, reps=5)
+        bound, bound_by, detail = online_bound(n, n, d, ops_per_pair, sm_clock_hz, sms)
+        log(f"{name} times: wrapper {ms!r} ms, bare launch {bare_ms!r} ms, plain {plain_ms!r} ms, "
+            f"bound {bound!r} ms ({bound_by}: {detail})")
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/fused_sinkhorn.cu",
+            "replaces": replaces,
+            "launches": None,  # filled in from the fused path's run
+            "max_abs_err": max(err, err_w, err_s),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call computes this function
+        })
+    return entries
+
+
 # --------------------------------------------------------------------------
 # Phase 3: the main path at full width
 # --------------------------------------------------------------------------
 
 
-def run_main_path(n: int, device, max_iter: int = 200) -> dict[str, int]:
+def run_main_path(n: int, device, max_iter: int = 200) -> tuple[dict[str, int], float]:
     """Runs (a)-(c) and the repeat of (a); returns the kernel launches made
-    by their four solves."""
+    by their four solves, and the value of (a)."""
     import torch
 
     import repro_torch as rt
@@ -239,7 +401,7 @@ def run_main_path(n: int, device, max_iter: int = 200) -> dict[str, int]:
     check(results["a"] == results["a-repeat"],
           f"repeated run (a) differs: {results['a']} vs {results['a-repeat']}")
     log("main path: the repeated run (a) is bitwise identical")
-    return total
+    return total, results["a"][0]
 
 
 # --------------------------------------------------------------------------
@@ -247,11 +409,29 @@ def run_main_path(n: int, device, max_iter: int = 200) -> dict[str, int]:
 # --------------------------------------------------------------------------
 
 
+def blockwise_ot_value(x, u, v, eps: float, rows: int = 256) -> float:
+    """Entropic OT objective <T, C> - eps H(T) of T = diag(u) K diag(v) on
+    the points x (x is y), in float64, built a block of rows at a time: both
+    terms are sums over the entries, so the blocks' values add up."""
+    import torch
+
+    from repro_torch.core.geometry import gibbs_kernel, squared_euclidean_cost
+    from repro_torch.core.sinkhorn import ot_cost_from_plan, plan_from_scalings
+
+    total = torch.zeros((), dtype=torch.float64, device=x.device)
+    for r0 in range(0, x.shape[0], rows):
+        c = squared_euclidean_cost(x[r0:r0 + rows], x)
+        total += ot_cost_from_plan(plan_from_scalings(u[r0:r0 + rows], gibbs_kernel(c, eps), v), c, eps)
+    return float(total)
+
+
 def check_accuracy(n: int, device, seeds: int = 4) -> None:
     import torch
 
     import repro_torch as rt
+    from repro_torch.core.sinkhorn import STATUS_LABELS
     from repro_torch.data.pointclouds import make_measures
+    from repro_torch.kernels import fused_sinkhorn_solve
 
     eps = 0.1
     a, b, x = make_measures("C1", n, 5, seed=1)
@@ -267,6 +447,18 @@ def check_accuracy(n: int, device, seeds: int = 4) -> None:
     log(f"accuracy n={n}: dense {v_dense!r} ({int(dense.n_iter)} it, {dense.status_label}, "
         f"{t_dense!r} s), log {v_log!r} ({int(logd.n_iter)} it, {logd.status_label}, {t_log!r} s)")
     check(abs(v_dense - v_log) <= 1e-8 * abs(v_log), "dense and log values differ beyond rtol 1e-8")
+    # phase 5's block-wise objective: on dense's own scalings it must give
+    # dense's value up to summation order (rtol 1e-10); on the fused solve's
+    # float32-kernel scalings, within the float32-level rtol 1e-4
+    xt, at, bt = (torch.as_tensor(t, device=device) for t in (x, a, b))
+    v_blocks = blockwise_ot_value(xt, *dense.scalings, eps)
+    fused = fused_sinkhorn_solve(xt, xt, at, bt, eps=eps, tol=1e-6, max_iter=1000)
+    v_fused = blockwise_ot_value(xt, fused.u, fused.v, eps)
+    log(f"accuracy n={n}: block-wise objective on dense's scalings {v_blocks!r}; "
+        f"fused_sinkhorn_solve {v_fused!r} ({int(fused.n_iter)} it, "
+        f"{STATUS_LABELS[int(fused.status)]}), relative to dense {abs(v_fused - v_dense) / abs(v_dense)!r}")
+    check(abs(v_blocks - v_dense) <= 1e-10 * abs(v_dense), "block-wise objective differs from dense's value")
+    check(abs(v_fused - v_dense) <= 1e-4 * abs(v_dense), "fused dense value differs from dense's beyond rtol 1e-4")
     del dense_problem, dense, logd
     torch.cuda.empty_cache()
     mf = rt.OTProblem(rt.PointCloudGeometry(x, device=device), a, b, eps)
@@ -277,6 +469,66 @@ def check_accuracy(n: int, device, seeds: int = 4) -> None:
     rmae = sum(errs) / len(errs)
     log(f"accuracy n={n}: spar_sink_mf s=16 s0 relative errors {errs!r}, mean {rmae!r}")
     check(rmae < 0.25, f"spar_sink_mf mean relative error {rmae} >= 0.25")
+
+
+# --------------------------------------------------------------------------
+# Phase 5: the fused dense path at full width
+# --------------------------------------------------------------------------
+
+
+def run_fused_path(n: int, device, max_iter: int = 200):
+    """fused_sinkhorn_solve on run (a)'s OT and run (c)'s UOT problem, and
+    online_lse for the OT solution's row marginal, with the plain versions
+    made to raise. Returns the phase's kernel launches, run (a)'s points
+    and the OT solution's scalings."""
+    import torch
+
+    from repro_torch.core.sinkhorn import CHECK_EVERY, STATUS_LABELS
+    from repro_torch.data.pointclouds import make_measures, make_uot_measures
+    from repro_torch.kernels import fused_sinkhorn_solve, online_lse, ops
+
+    eps, lam = 0.1, 0.5
+    a, b, x = (torch.as_tensor(t, device=device) for t in make_measures("C1", n, 5, seed=0))
+    ua, ub, ux = (torch.as_tensor(t, device=device) for t in make_uot_measures("C1", n, 5, seed=0))
+    runs = [("ot", x, a, b, 1.0), ("uot", ux, ua, ub, lam / (lam + eps))]
+
+    def plain_called(*args, **kwargs):
+        raise RuntimeError("a plain version was called on the fused path")
+
+    saved = ops.online_matvec_ref, ops.online_lse_ref
+    ops.online_matvec_ref = ops.online_lse_ref = plain_called
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        executed = 0
+        for name, pts, ma, mb, fe in runs:
+            t0 = time.perf_counter()
+            res = fused_sinkhorn_solve(pts, pts, ma, mb, eps=eps, fe=fe, tol=1e-6, max_iter=max_iter)
+            n_iter = int(res.n_iter)  # syncs
+            wall_s = time.perf_counter() - t0
+            status = STATUS_LABELS[int(res.status)]
+            # the loop reads its active flag every CHECK_EVERY iterations, so
+            # it executes up to CHECK_EVERY - 1 frozen iterations past n_iter
+            executed += min(max_iter, CHECK_EVERY * math.ceil(n_iter / CHECK_EVERY))
+            launches = ops.LAUNCHES["online_matvec"]
+            log("fused path " + json.dumps(dict(
+                run=name, n=n, fe=fe, n_iter=n_iter, status=status, err=float(res.err), wall_s=wall_s,
+                ms_per_iteration=wall_s / max(n_iter, 1) * 1e3, online_matvec_launches=launches)))
+            check(status not in ("non_finite", "degenerate"), f"fused {name} ended {status}")
+            check(launches == 2 * executed,
+                  f"fused {name}: {launches} online_matvec launches, not 2 x {executed} executed iterations")
+            if name == "ot":
+                u, v = res.u, res.v
+                # row marginal T 1 = u * exp(LSE_j(-C_ij/eps + log v_j)), in the log domain
+                row = u * torch.exp(online_lse(x, x, eps * torch.log(v), eps=eps).to(u.dtype))
+                marg = float(torch.sum(torch.abs(row - a)))
+                log(f"fused path ot: row marginal by online_lse, |T 1 - a|_1 = {marg!r}")
+                check(math.isfinite(marg) and marg < 1e-2, f"fused ot row marginal error {marg}")
+        counts = dict(ops.LAUNCHES)
+    finally:
+        ops.online_matvec_ref, ops.online_lse_ref = saved
+    check(counts["online_lse"] == 1, f"online_lse launched {counts['online_lse']} times, not once")
+    return counts, x, u, v
 
 
 def profile_main_path(n: int, device, max_iter: int = 200) -> None:
@@ -325,27 +577,48 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(src))
     from repro_torch.core.spar_sink import default_cap, s0
-    from repro_torch.kernels import gather_kernel
+    from repro_torch.kernels import library
 
+    # full float32 in every float32 matrix product and convolution: TF32 in
+    # the plain versions' x @ y.T would cancel catastrophically in
+    # |x|^2 + |y|^2 - 2 x.y
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     card = card_line()
     log(card)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    clock = max_sm_clock_hz()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}, "
+        f"max SM clock {clock / 1e6!r} MHz")
     t0 = time.perf_counter()
-    gather_kernel.load()
-    log(f"built and loaded {gather_kernel.SOURCE.name} in {time.perf_counter() - t0!r} s")
+    library.load()
+    sources = sorted(p.name for p in library.CSRC.glob("*.cu"))
+    log(f"built and loaded {len(sources)} CUDA sources {sources} in {time.perf_counter() - t0!r} s")
 
     n = 2 ** 17
-    entry = check_gathered_kernel(n, default_cap(4 * s0(n)), 5, device)
-    launches = run_main_path(n, device)
-    entry["launches"] = launches["gathered_kernel"]
+    entries = [check_gathered_kernel(n, default_cap(4 * s0(n)), 5, device)]
+    entries += check_online_kernels(n, device, clock)
+    launches, value_a = run_main_path(n, device)
+    entries[0]["launches"] = launches["gathered_kernel"]
     check_accuracy(8192, device)
+    fused_launches, x, u, v = run_fused_path(n, device)
+    for entry in entries[1:]:
+        entry["launches"] = fused_launches[entry["name"]]
+    t0 = time.perf_counter()
+    value_dense = blockwise_ot_value(x, u, v, 0.1)
+    rel = abs(value_a - value_dense) / abs(value_dense)
+    log(f"accuracy n={n}: fused dense objective {value_dense!r} ({time.perf_counter() - t0!r} s), "
+        f"run (a) spar_sink_mf {value_a!r}, relative error {rel!r}")
+    check(math.isfinite(value_dense) and math.isfinite(rel), "non-finite n = 2^17 accuracy")
+    del x, u, v
+    for entry in entries:
+        check(entry["launches"] > 0, f"{entry['name']} was not launched on its path")
     if profile_run:
         profile_main_path(n, device)
 
     log(f"total {time.perf_counter() - t_start!r} s")
     log(card)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

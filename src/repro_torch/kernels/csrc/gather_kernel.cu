@@ -102,8 +102,4 @@ int gathered_kernel_launch(const float* x, const float* y, const int64_t* rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-const char* gathered_kernel_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
 }  // extern "C"

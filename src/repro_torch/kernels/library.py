@@ -1,0 +1,133 @@
+"""The port's CUDA library: every ``csrc/*.cu`` built into one shared object.
+
+Each source is compiled with ``nvcc`` for ``sm_90a`` (Hopper), all of them at
+once in parallel processes, and the objects are linked into one shared
+library with a plain C interface, loaded with `ctypes`. The build happens at
+first use, never at import, into ``build/repro_torch_kernels/`` at the root
+of the checkout (listed in ``.gitignore``), under a file name that carries a
+hash of every source and the flags, so an edited source is rebuilt and an
+unchanged tree is loaded as it is.
+
+Every ``<name>_launch`` function of the library launches one kernel on the
+stream it is given (its last argument), allocates nothing, and returns its
+``cudaError_t``; `launch` passes PyTorch's current stream, raises on a code
+other than 0 and counts the launch in `LAUNCHES`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+__all__ = ["BUILD_DIR", "CSRC", "LAUNCHES", "launch", "load", "reset_launch_counts"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+
+#: the cost switch of every launch function
+COSTS = {"sqeuclidean": 0, "wfr": 1}
+
+_P, _I64, _INT, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+#: C signature (argument types) of each ``<name>_launch``, which returns int;
+#: pointers and the stream are ``c_void_p`` so that no address is cut to 32 bits
+SIGNATURES = {
+    # x, y, rows, cols, n, m, k, d, eps, wfr, eta, k_out, c_out, bad_index, stream
+    "gathered_kernel": (_P, _P, _P, _P, _I64, _I64, _I64, _INT, _F32, _INT, _F32, _P, _P, _P, _P),
+    # x, y, v, n, m, d, eps, wfr, eta, out, stream
+    "online_matvec": (_P, _P, _P, _I64, _I64, _INT, _F32, _INT, _F32, _P, _P),
+    # x, y, g, n, m, d, eps, wfr, eta, out, stream
+    "online_lse": (_P, _P, _P, _I64, _I64, _INT, _F32, _INT, _F32, _P, _P),
+}
+
+#: kernel name -> number of launches since the last `reset_launch_counts`
+LAUNCHES: dict[str, int] = dict.fromkeys(SIGNATURES, 0)
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the CUDA "
+            "kernels cannot be built"
+        )
+    return str(path)
+
+
+def _run_all(commands: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the output of the first that fails."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in commands
+    ]
+    outputs = [proc.communicate()[0] for proc in procs]  # waits for every process
+    for cmd, proc, out in zip(commands, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} failed (exit {proc.returncode}):\n{out}")
+
+
+def _build() -> Path:
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    target = BUILD_DIR / f"librepro_torch_kernels_{digest.hexdigest()[:16]}.so"
+    if target.exists():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [str(Path(tmp) / f"{src.stem}.o") for src in sources]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)] for src, obj in zip(sources, objects)])
+        lib = str(Path(tmp) / target.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objects]])
+        os.replace(lib, target)  # atomic: a concurrent loader sees all or nothing
+    return target
+
+
+def load() -> ctypes.CDLL:
+    """The built library with its C signatures declared (builds on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(_build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, f"{name}_launch")
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.cuda_error_string.argtypes = [ctypes.c_int]
+            lib.cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def launch(name: str, device, *args) -> None:
+    """Call ``<name>_launch(*args, stream)`` on ``device`` with PyTorch's
+    current stream there; raise if it returns a CUDA error, else count one
+    launch of ``name``."""
+    lib = load()
+    with torch.cuda.device(device):
+        code = getattr(lib, f"{name}_launch")(*args, torch.cuda.current_stream(device).cuda_stream)
+    if code != 0:
+        msg = lib.cuda_error_string(code).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} (cudaError {code})")
+    LAUNCHES[name] += 1

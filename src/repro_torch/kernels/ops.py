@@ -1,27 +1,54 @@
 """Wrappers around the port's hand-written kernels.
 
 A wrapper checks what it is given, launches its kernel on PyTorch's current
-stream for CUDA tensors, and counts the launch. For CPU tensors it runs the
-kernel's plain version (`repro_torch.kernels.ref`); nothing else selects
-the plain version, and a failed build or launch raises.
+stream for CUDA tensors, and counts the launch (`LAUNCHES`). For CPU tensors
+it runs the kernel's plain version (`repro_torch.kernels.ref`); nothing else
+selects the plain version, and a failed build or launch raises.
+
+The reference's TPU tiling arguments (``block_n``, ``block_m``, ``block_s``)
+and ``interpret`` are not carried over: the CUDA kernels size their own
+tiles, and the CPU runs the plain versions.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ref import gathered_kernel_ref
+from repro_torch.core.sinkhorn import SinkhornResult, generic_scaling_loop
+from repro_torch.kernels.fused_sinkhorn import _launch_online_lse, _launch_online_matvec
+from repro_torch.kernels.gather_kernel import _launch_gathered_kernel
+from repro_torch.kernels.library import COSTS, LAUNCHES, reset_launch_counts
+from repro_torch.kernels.ref import gathered_kernel_ref, online_lse_ref, online_matvec_ref
 
-__all__ = ["LAUNCHES", "gathered_kernel", "reset_launch_counts"]
+__all__ = [
+    "LAUNCHES",
+    "fused_sinkhorn_solve",
+    "gathered_kernel",
+    "online_lse",
+    "online_matvec",
+    "reset_launch_counts",
+]
 
-#: kernel name -> number of launches since the last `reset_launch_counts`
-LAUNCHES: dict[str, int] = {"gathered_kernel": 0}
 
-_COSTS = {"sqeuclidean": 0, "wfr": 1}
+def _check_cost(cost: str) -> None:
+    if cost not in COSTS:
+        raise ValueError(f"unknown cost {cost!r}; available: {', '.join(COSTS)}")
 
 
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+def _check_points(x: torch.Tensor, y: torch.Tensor) -> None:
+    if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1]:
+        raise ValueError(f"points must be (n, d) and (m, d); got {tuple(x.shape)}, {tuple(y.shape)}")
+    if not (x.is_floating_point() and y.is_floating_point()):
+        raise TypeError(f"points must be floating point; got {x.dtype}, {y.dtype}")
+
+
+def _one_device(name: str, *tensors: torch.Tensor) -> torch.device:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"all inputs must be on one device; got {sorted(map(str, devices))}")
+    dev = tensors[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, not {dev.type}")
+    return dev
 
 
 def gathered_kernel(
@@ -42,22 +69,13 @@ def gathered_kernel(
     CUDA kernel (``csrc/gather_kernel.cu``); CPU tensors through
     `gathered_kernel_ref`.
     """
-    if cost not in _COSTS:
-        raise ValueError(f"unknown cost {cost!r}; available: {', '.join(_COSTS)}")
-    if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1]:
-        raise ValueError(f"points must be (n, d) and (m, d); got {tuple(x.shape)}, {tuple(y.shape)}")
+    _check_cost(cost)
+    _check_points(x, y)
     if rows.ndim != 1 or rows.shape != cols.shape:
         raise ValueError(f"rows/cols must be equal-length 1-d; got {tuple(rows.shape)}, {tuple(cols.shape)}")
-    if not (x.is_floating_point() and y.is_floating_point()):
-        raise TypeError(f"points must be floating point; got {x.dtype}, {y.dtype}")
-    devices = {t.device for t in (x, y, rows, cols)}
-    if len(devices) != 1:
-        raise ValueError(f"all inputs must be on one device; got {sorted(map(str, devices))}")
-    dev = x.device
+    dev = _one_device("gathered_kernel", x, y, rows, cols)
     if dev.type == "cpu":
         return gathered_kernel_ref(x, y, rows, cols, eps=eps, cost=cost, eta=eta)
-    if dev.type != "cuda":
-        raise ValueError(f"gathered_kernel runs on CUDA or CPU tensors, not {dev.type}")
     if rows.dtype != torch.int64 or cols.dtype != torch.int64:
         raise TypeError(f"rows/cols must be int64; got {rows.dtype}, {cols.dtype}")
     if not (rows.is_contiguous() and cols.is_contiguous()):
@@ -78,23 +96,90 @@ def gathered_kernel(
     return k_out, c_out
 
 
-def _launch_gathered_kernel(xf, yf, rows, cols, k_out, c_out, bad_index, *, eps: float, cost: str, eta: float) -> None:
-    """One counted launch of the CUDA kernel on already-checked CUDA tensors
-    (contiguous float32 points, int64 indices, float32 outputs, a zeroed
-    int32 flag that the kernel sets on an out-of-range index), on the
-    current stream; raises if the launch is refused."""
-    from repro_torch.kernels.gather_kernel import load
+def _online(name: str, ref, launch, x, y, w, *, eps: float, cost: str, eta: float) -> torch.Tensor:
+    """The checks and dispatch shared by `online_matvec` and `online_lse`."""
+    _check_cost(cost)
+    _check_points(x, y)
+    if w.ndim != 1 or w.shape[0] != y.shape[0]:
+        raise ValueError(f"{name}: the weights must be (m,) = ({y.shape[0]},); got {tuple(w.shape)}")
+    if not w.is_floating_point():
+        raise TypeError(f"{name}: the weights must be floating point; got {w.dtype}")
+    dev = _one_device(name, x, y, w)
+    if dev.type == "cpu":
+        return ref(x, y, w, eps=eps, cost=cost, eta=eta)
+    xf = x.to(torch.float32).contiguous()
+    yf = xf if y is x else y.to(torch.float32).contiguous()
+    wf = w.to(torch.float32).contiguous()
+    out = torch.empty(xf.shape[0], dtype=torch.float32, device=dev)
+    launch(xf, yf, wf, out, eps=eps, cost=cost, eta=eta)
+    return out
 
-    lib = load()
-    dev = xf.device
-    with torch.cuda.device(dev):
-        code = lib.gathered_kernel_launch(
-            xf.data_ptr(), yf.data_ptr(), rows.data_ptr(), cols.data_ptr(),
-            xf.shape[0], yf.shape[0], rows.shape[0], xf.shape[1], float(eps), _COSTS[cost], float(eta),
-            k_out.data_ptr(), c_out.data_ptr(), bad_index.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if code != 0:
-        msg = lib.gathered_kernel_error_string(code).decode()
-        raise RuntimeError(f"gathered_kernel launch failed: {msg} (cudaError {code})")
-    LAUNCHES["gathered_kernel"] += 1
+
+def online_matvec(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    eps: float,
+    cost: str = "sqeuclidean",
+    eta: float = 1.0,
+) -> torch.Tensor:
+    """``K(x, y) @ v`` without materializing K: ``out_i = sum_j exp(-C_ij/eps) v_j``.
+
+    Shapes ``(n,d),(m,d),(m,) -> (n,)``, float32; points and v of another
+    float dtype are cast to float32 first. WFR-blocked pairs add 0. CUDA
+    tensors go through the CUDA kernel (``csrc/fused_sinkhorn.cu``); CPU
+    tensors through `online_matvec_ref`.
+    """
+    return _online("online_matvec", online_matvec_ref, _launch_online_matvec, x, y, v,
+                   eps=eps, cost=cost, eta=eta)
+
+
+def online_lse(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    g: torch.Tensor,
+    *,
+    eps: float,
+    cost: str = "sqeuclidean",
+    eta: float = 1.0,
+) -> torch.Tensor:
+    """``logsumexp_j(-C_ij/eps + g_j/eps)`` streamed, without materializing K.
+
+    Shapes ``(n,d),(m,d),(m,) -> (n,)``, float32, cast as `online_matvec`.
+    WFR-blocked pairs and ``g_j = -inf`` carry no mass; a row with no mass
+    at all comes out at or below the ``-1e30`` sentinel. CUDA tensors go
+    through the CUDA kernel; CPU tensors through `online_lse_ref`.
+    """
+    return _online("online_lse", online_lse_ref, _launch_online_lse, x, y, g,
+                   eps=eps, cost=cost, eta=eta)
+
+
+def fused_sinkhorn_solve(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    eps: float,
+    fe: float = 1.0,
+    cost: str = "sqeuclidean",
+    eta: float = 1.0,
+    tol: float = 1e-6,
+    max_iter: int = 1000,
+) -> SinkhornResult:
+    """Dense Sinkhorn (OT: ``fe = 1``; UOT: ``fe = lam/(lam+eps)``) in
+    O((n + m) d) memory: both mat-vecs of each iteration are `online_matvec`
+    (``K v`` on (x, y), ``K^T u`` on (y, x)), so K is never stored.
+
+    The loop is `generic_scaling_loop` in the dtype of ``a``/``b``: with
+    float64 histograms the float32 mat-vecs are promoted in the updates.
+    Runs where the tensors lie: CUDA tensors launch two kernels an iteration.
+    """
+    xf = x.to(torch.float32)
+    yf = xf if y is x else y.to(torch.float32)
+    return generic_scaling_loop(
+        lambda v: online_matvec(xf, yf, v, eps=eps, cost=cost, eta=eta),
+        lambda u: online_matvec(yf, xf, u, eps=eps, cost=cost, eta=eta),
+        a, b, fe, tol=tol, max_iter=max_iter,
+    )

@@ -11,7 +11,10 @@ import torch
 
 from repro_torch.core.geometry import wfr_from_dist
 
-__all__ = ["gathered_kernel_ref"]
+__all__ = ["gathered_kernel_ref", "online_lse_ref", "online_matvec_ref"]
+
+#: elements of one (rows, m) block of the streaming plain versions
+_BLOCK_ELEMS = 1 << 26
 
 
 def gathered_kernel_ref(
@@ -36,11 +39,79 @@ def gathered_kernel_ref(
         - 2.0 * torch.sum(xg * yg, dim=-1),
         0.0,
     )
+    c, blocked = _cost_from_sq(sq, cost, eta)
+    k = torch.exp(-c / eps)
+    if blocked is None:
+        return k, c
+    return torch.where(blocked, 0.0, k), torch.where(blocked, torch.inf, c)
+
+
+def _cost_from_sq(sq: torch.Tensor, cost: str, eta: float):
+    """Squared distances -> (ground cost, WFR blocked mask or ``None``), with
+    the float32-safe cos clamp of the kernels."""
     if cost == "sqeuclidean":
-        c = sq
-        return torch.exp(-c / eps), c
+        return sq, None
     if cost == "wfr":
-        c, blocked = wfr_from_dist(torch.sqrt(sq + 1e-30), eta, cos_floor=1e-30)
-        k = torch.where(blocked, 0.0, torch.exp(-c / eps))
-        return k, torch.where(blocked, torch.inf, c)
+        return wfr_from_dist(torch.sqrt(sq + 1e-30), eta, cos_floor=1e-30)
     raise ValueError(f"unknown cost {cost!r}; available: sqeuclidean, wfr")
+
+
+def _cost_block(x: torch.Tensor, y: torch.Tensor, cost: str, eta: float):
+    """``(r, d), (m, d) -> (r, m)`` ground costs and blocked mask, with the
+    reference's formula ``x^2 + y^2 - 2xy`` clamped at 0."""
+    x2 = torch.sum(x * x, dim=-1)[:, None]
+    y2 = torch.sum(y * y, dim=-1)[None, :]
+    return _cost_from_sq(torch.clamp_min(x2 + y2 - 2.0 * (x @ y.T), 0.0), cost, eta)
+
+
+def _row_blocks(n: int, m: int, block_rows: int | None):
+    rows = block_rows or max(1, _BLOCK_ELEMS // max(m, 1))
+    return [(r0, min(r0 + rows, n)) for r0 in range(0, n, rows)]
+
+
+def online_matvec_ref(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    eps: float,
+    cost: str = "sqeuclidean",
+    eta: float = 1.0,
+    block_rows: int | None = None,
+) -> torch.Tensor:
+    """``out_i = sum_j exp(-C(x_i, y_j)/eps) v_j`` in float32, K built in
+    blocks of ``block_rows`` rows (by default about 2^26 entries a block),
+    so that n = m = 2^17 fits on the card; WFR-blocked entries add 0."""
+    xf, yf, vf = x.to(torch.float32), y.to(torch.float32), v.to(torch.float32)
+    out = torch.empty(xf.shape[0], dtype=torch.float32, device=xf.device)
+    for r0, r1 in _row_blocks(xf.shape[0], yf.shape[0], block_rows):
+        c, blocked = _cost_block(xf[r0:r1], yf, cost, eta)
+        k = torch.exp(-c / eps)
+        if blocked is not None:
+            k = torch.where(blocked, 0.0, k)
+        out[r0:r1] = k @ vf
+    return out
+
+
+def online_lse_ref(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    g: torch.Tensor,
+    *,
+    eps: float,
+    cost: str = "sqeuclidean",
+    eta: float = 1.0,
+    block_rows: int | None = None,
+) -> torch.Tensor:
+    """``out_i = logsumexp_j(-C(x_i, y_j)/eps + g_j/eps)`` in float32, in
+    blocks of rows as `online_matvec_ref`; WFR-blocked entries are ``-inf``,
+    and a row with no finite term comes out as the ``-1e30`` sentinel."""
+    xf, yf, gf = x.to(torch.float32), y.to(torch.float32), g.to(torch.float32)
+    out = torch.empty(xf.shape[0], dtype=torch.float32, device=xf.device)
+    for r0, r1 in _row_blocks(xf.shape[0], yf.shape[0], block_rows):
+        c, blocked = _cost_block(xf[r0:r1], yf, cost, eta)
+        z = -c / eps + gf[None, :] / eps
+        if blocked is not None:
+            z = torch.where(blocked, -torch.inf, z)
+        out[r0:r1] = torch.logsumexp(z, dim=1)
+    return torch.where(torch.isneginf(out), -1e30, out)

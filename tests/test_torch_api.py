@@ -30,8 +30,9 @@ FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\b(?!_torch)|from 
 def test_import_pulls_in_neither_jax_nor_the_reference():
     code = (
         "import sys\n"
-        "import repro_torch, repro_torch.interop, repro_torch.kernels.ops, "
-        "repro_torch.kernels.gather_kernel, repro_torch.data.pointclouds\n"
+        "import repro_torch, repro_torch.interop, repro_torch.kernels, repro_torch.kernels.ops, "
+        "repro_torch.kernels.library, repro_torch.kernels.gather_kernel, "
+        "repro_torch.kernels.fused_sinkhorn, repro_torch.kernels.ref, repro_torch.data.pointclouds\n"
         "repro_torch.available_methods()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.'))\n"
