@@ -31,7 +31,17 @@ failure exits non-zero):
    then ``online_lse`` for the OT solution's row marginal; the counts are set
    to 0 just before and read just after, and ``online_matvec`` must have run
    2 launches for each iteration the loop executed; then the relative error
-   of run (a)'s ``spar_sink_mf`` value against the dense objective.
+   of run (a)'s ``spar_sink_mf`` value against the dense objective;
+6. the block-ELL path at n = 8192 (run (a)'s and run (c)'s problems, block
+   128, s = 16 s0): ``block_ell_matvec`` against its plain version on the
+   solver's own sketch (both layouts, the transposed one also against a
+   float64 scatter), over the reference test shapes, on a WFR sketch whose
+   blocked rows must come out exactly 0, and batched (B = 8); then
+   ``solve(problem, method="spar_sink_block_ell")`` for OT (twice, bitwise
+   equal) and UOT, with 2 launches for each iteration the loop executed;
+   the mean relative error over 4 seeds against phase 4's ``log`` value; and
+   the card's OT sketch solved by the float64 CPU path (the one labelled CPU
+   run).
 
 ``--profile`` also runs (a) under `torch.profiler` and prints where its
 device time goes. The line before the last is a JSON object with one entry per kernel; the
@@ -63,6 +73,9 @@ LSE_TOL = dict(rtol=2e-4, atol=5e-4)
 # the shapes (n, m, d) of the reference's online-kernel tests (tests/test_kernels.py)
 SWEEP_SHAPES = [(64, 64, 2), (256, 128, 5), (300, 257, 3), (512, 512, 50), (100, 700, 8)]
 NEG_INF = -1e30
+# the reference's block-ELL kernel tests (tests/test_kernels_cpu.py): tolerance and shapes
+BLOCK_ELL_TOL = dict(rtol=2e-4, atol=1e-6)
+BLOCK_ELL_SHAPES = [(8, 2, 4), (16, 4, 8), (32, 3, 4)]
 
 
 def check(ok: bool, what: str) -> None:
@@ -105,6 +118,25 @@ def time_ms(fn, *, warmup: int = 3, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20) -> float | None:
+    """Mean device time of the kernels that one ``fn()`` launches, from
+    `torch.profiler` over ``reps`` calls (a launch shorter than its host
+    overhead leaves the card idle between CUDA events); None if the
+    profiler recorded no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return total_us / reps / 1e3 if total_us > 0 else None
 
 
 # --------------------------------------------------------------------------
@@ -425,7 +457,7 @@ def blockwise_ot_value(x, u, v, eps: float, rows: int = 256) -> float:
     return float(total)
 
 
-def check_accuracy(n: int, device, seeds: int = 4) -> None:
+def check_accuracy(n: int, device, seeds: int = 4) -> float:
     import torch
 
     import repro_torch as rt
@@ -469,6 +501,7 @@ def check_accuracy(n: int, device, seeds: int = 4) -> None:
     rmae = sum(errs) / len(errs)
     log(f"accuracy n={n}: spar_sink_mf s=16 s0 relative errors {errs!r}, mean {rmae!r}")
     check(rmae < 0.25, f"spar_sink_mf mean relative error {rmae} >= 0.25")
+    return v_log
 
 
 # --------------------------------------------------------------------------
@@ -531,20 +564,363 @@ def run_fused_path(n: int, device, max_iter: int = 200):
     return counts, x, u, v
 
 
-def profile_main_path(n: int, device, max_iter: int = 200) -> None:
-    """Run (a) once more under `torch.profiler` and print where its device
-    time goes: the busiest operators by self device time, and the device's
+# --------------------------------------------------------------------------
+# Phase 6: the block-ELL path at n = 8192
+# --------------------------------------------------------------------------
+
+
+def block_ell_problems(n: int, device, seed: int = 0):
+    """Run (a)'s OT problem and run (c)'s UOT problem at n (C1 measures,
+    d = 5, float64, eps = 0.1) on a PointCloudGeometry."""
+    import repro_torch as rt
+    from repro_torch.data.pointclouds import make_measures, make_uot_measures
+
+    a, b, x = make_measures("C1", n, 5, seed=seed)
+    ot = rt.OTProblem(rt.PointCloudGeometry(x, device=device), a, b, 0.1)
+    ua, ub, ux = make_uot_measures("C1", n, 5, seed=seed)
+    uot = rt.UOTProblem(rt.PointCloudGeometry(ux, device=device), ua, ub, 0.1, lam=0.5)
+    return ot, uot
+
+
+def block_ell_bytes(sk) -> int:
+    """Least bytes of one launch on a layout: every tile, column id and
+    row_ptr entry read once, v read once, the output written once."""
+    ell_rows, width, bk = sk.vals.shape[0], sk.vals.shape[1], sk.block
+    return 4 * (ell_rows * width * (bk * bk + 1) + sk.m + sk.n
+                + (0 if sk.row_ptr is None else sk.row_ptr.numel()))
+
+
+def block_ell_bound(nbytes: int, ell_rows: int, width: int, bk: int):
+    """(bound ms, bound_by): bytes at the HBM rate against 2 float32
+    operations per tile element at the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * ell_rows * width * bk * bk / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def scatter_rmatvec64(sk, u):
+    """K~^T u in float64 by the reference's per-tile products and a scatter
+    over the row layout's column ids (a check only: on the card
+    ``index_add_`` sums with atomics)."""
+    import torch
+
+    bk = sk.block
+    contrib = torch.einsum("rkij,ri->rkj", sk.vals, u.reshape(sk.n // bk, bk))
+    out = torch.zeros((sk.m // bk, bk), dtype=torch.float64, device=u.device)
+    out.index_add_(0, sk.col_idx.reshape(-1).long(), contrib.reshape(-1, bk))
+    return out.reshape(sk.m)
+
+
+def bsr_library_ms(sk, v32):
+    """Time of cuSPARSE's block-sparse mat-vec on the sketch's valid tiles
+    (``torch.sparse_bsr_tensor @ v`` in float32), and its largest error
+    against the kernel's plain version; (None, reason) where PyTorch
+    refuses the call."""
+    import torch
+
+    from repro_torch.kernels.ref import block_ell_matvec_ref
+
+    bk, ncb = sk.block, sk.m // sk.block
+    valid = torch.arange(sk.max_blocks, device=v32.device)[None, :] < sk.nblocks[:, None]
+    rows = torch.arange(sk.nblocks.shape[0], device=v32.device)[:, None].expand_as(valid)[valid]
+    cols = sk.col_idx[valid].long()
+    order = torch.argsort(rows * ncb + cols)
+    crow = torch.zeros(sk.n // bk + 1, dtype=torch.int64, device=v32.device)
+    crow[1:] = torch.cumsum(sk.nblocks.long(), 0)
+    col = v32[:, None]
+    ref = block_ell_matvec_ref(sk.vals32, sk.col_idx, v32.reshape(-1, bk)).reshape(-1)
+    try:  # the library call only: it is timed here and used nowhere in the port
+        bsr = torch.sparse_bsr_tensor(crow, cols[order], sk.vals32[valid][order], size=(sk.n, sk.m))
+        out = (bsr @ col)[:, 0]
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:
+        return None, f"{type(exc).__name__}: {exc}"
+    err = _max_abs_err(out, ref)
+    dev_ms = device_ms(lambda: bsr @ col)
+    return time_ms(lambda: bsr @ col), f"device time {dev_ms!r} ms (profiler), max_abs_err against the plain version {err!r}"
+
+
+def check_block_ell_kernel(n: int, device) -> dict:
+    """B4 against its plain version on the card: at the solver's own OT
+    sketch (n = 8192, block 128, s = 16 s0) on both layouts, over the
+    reference test shapes, on the WFR zero-mass sketch of the reference's
+    kernel test, and batched (B = 8 of the solver's sketches); two launches
+    bitwise equal; times of the wrapper as the path calls it, the bare
+    launch, the plain version, cuSPARSE's BSR mat-vec and the batched launch."""
+    import numpy as np
+    import torch
+
+    import repro_torch as rt
+    from repro_torch.core import sparsify
+    from repro_torch.core.geometry import gibbs_kernel, wfr_cost
+    from repro_torch.kernels.block_ell import _launch_block_ell_matvec
+    from repro_torch.kernels.ops import batched_block_ell_matvec, block_ell_matvec
+    from repro_torch.kernels.ref import block_ell_matvec_ref
+
+    ot, _ = block_ell_problems(n, device)
+    s = 16 * rt.s0(n)
+    sk = rt.build_block_ell_sketch(ot, torch.Generator(device=device).manual_seed(0), s)
+    skt = sk.transposed
+    gen = torch.Generator(device=device).manual_seed(1)
+    v = torch.rand(n, dtype=torch.float64, device=device, generator=gen)
+    errs = []
+
+    def held(name, out, again, ref, tol=BLOCK_ELL_TOL):
+        torch.cuda.synchronize()
+        check(bool(torch.equal(out, again)), f"{name}: two launches differ")
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+        torch.testing.assert_close(out, ref, **tol)
+        errs.append(_max_abs_err(out, ref))
+        return errs[-1]
+
+    for name, lay in (("row layout", sk), ("transposed layout", skt)):
+        out = block_ell_matvec(lay.vals32, lay.col_idx, v, row_ptr=lay.row_ptr)
+        again = block_ell_matvec(lay.vals32, lay.col_idx, v, row_ptr=lay.row_ptr)
+        ref = block_ell_matvec_ref(lay.vals32, lay.col_idx, v.reshape(-1, lay.block), lay.row_ptr).reshape(-1)
+        err = held(f"block_ell_matvec {name}", out, again, ref)
+        log(f"block_ell_matvec {name} n={n} ell_rows={lay.vals.shape[0]} max_blocks={lay.max_blocks} "
+            f"valid_tiles={int(lay.nblocks.sum())}: max_abs_err={err!r}, two launches bitwise equal")
+    # the transposed launch is K~^T v: held against the float64 scatter
+    out_t = sparsify.block_ell_rmatvec(sk, v)
+    ref64 = scatter_rmatvec64(sk, v)
+    torch.testing.assert_close(out_t, ref64, **BLOCK_ELL_TOL)
+    err64 = _max_abs_err(out_t, ref64)
+    log(f"block_ell_matvec transposed layout against the float64 scatter K~^T v: max_abs_err={err64!r}")
+
+    # the reference test shapes (tests/test_kernels_cpu.py), Bk 8..32
+    err_s = 0.0
+    for bk, maxb, nrb in BLOCK_ELL_SHAPES:
+        rng = np.random.default_rng(bk * maxb)
+        vals = torch.as_tensor(rng.uniform(size=(nrb, maxb, bk, bk)), dtype=torch.float32, device=device)
+        ci = torch.as_tensor(rng.integers(0, nrb, (nrb, maxb)), dtype=torch.int32, device=device)
+        vs = torch.as_tensor(rng.uniform(size=nrb * bk), dtype=torch.float32, device=device)
+        err_s = max(err_s, held(f"block_ell_matvec bk={bk}", block_ell_matvec(vals, ci, vs),
+                                block_ell_matvec(vals, ci, vs),
+                                block_ell_matvec_ref(vals, ci, vs.reshape(-1, bk)).reshape(-1)))
+    log(f"block_ell_matvec over the reference test shapes (bk, maxb, nrb) {BLOCK_ELL_SHAPES}: "
+        f"max_abs_err={err_s!r}")
+
+    # WFR zero-mass tiles (tests/test_kernels_cpu.py): two clusters further
+    # apart than pi * eta, so every tile across them is blocked (all 0). The
+    # reference's draw forces each row-block's tiles, which here include one
+    # inside its own cluster, so no row is left with blocked tiles only;
+    # the draws without forced tiles (seeds 3, 4, ...) are searched for the
+    # first that leaves a row-block whose kept tiles are all blocked, and
+    # those rows must come out exactly 0
+    nw, bkw = 128, 16
+    rng = np.random.default_rng(7)
+    xw = np.concatenate([rng.uniform(0.0, 0.2, (nw // 2, 2)), rng.uniform(1.8, 2.0, (nw // 2, 2))])
+    kw = gibbs_kernel(wfr_cost(torch.as_tensor(xw, dtype=torch.float32, device=device), eta=0.2), 0.1)
+    aw = torch.as_tensor(rng.dirichlet(np.ones(nw)), dtype=torch.float32, device=device)
+    tpw = sparsify.ot_tile_probs(aw, aw, bkw)
+    vw = torch.as_tensor(rng.uniform(size=nw), dtype=torch.float32, device=device)
+
+    def wfr_sketch(seed_w, ensure):
+        return sparsify.sparsify_block_ell(torch.Generator(device=device).manual_seed(seed_w), kw, tpw,
+                                           float(nw * 8), bkw, 4, ensure_rows=ensure)
+
+    for seed_w in range(3, 67):
+        skd = wfr_sketch(seed_w, False)
+        dead = (torch.sum(sparsify.block_ell_to_dense(skd), dim=1) == 0) & (skd.nblocks > 0).repeat_interleave(bkw)
+        if bool(dead.any()):
+            break
+    check(bool(dead.any()), "no WFR draw left a row-block whose kept tiles are all blocked")
+    err_w = 0.0
+    for name, skw in (("forced tiles, seed 3", wfr_sketch(3, True)), (f"no forced tiles, seed {seed_w}", skd)):
+        out_w = block_ell_matvec(skw.vals32, skw.col_idx, vw)
+        ref_w = block_ell_matvec_ref(skw.vals32, skw.col_idx, vw.reshape(-1, bkw)).reshape(-1)
+        err_w = max(err_w, held(f"block_ell_matvec wfr {name}", out_w,
+                                block_ell_matvec(skw.vals32, skw.col_idx, vw), ref_w))
+    check(bool((out_w[dead] == 0).all()) and bool((ref_w[dead] == 0).all()),
+          "WFR rows whose kept tiles are all blocked are not exactly 0")
+    log(f"block_ell_matvec wfr n={nw} bk={bkw}: blocked share {float((kw == 0).double().mean())!r}; "
+        f"{int(dead.sum())} rows with blocked tiles only (seed {seed_w}) exactly 0; max_abs_err={err_w!r}")
+
+    # an out-of-range column id raises
+    bad_ci = sk.col_idx.clone()
+    bad_ci[0, 0] = n // sk.block
+    try:
+        block_ell_matvec(sk.vals32, bad_ci, v)
+    except IndexError:
+        pass
+    else:
+        check(False, "an out-of-range column id did not raise")
+    log("block_ell_matvec: an out-of-range column id raises IndexError")
+
+    # batched: B = 8 of the solver's sketches (seeds 0..7), one launch
+    bsz = 8
+    sks = [sk] + [rt.build_block_ell_sketch(ot, torch.Generator(device=device).manual_seed(i), s)
+                  for i in range(1, bsz)]
+    check(len({k.max_blocks for k in sks}) == 1, "the batch's sketches differ in width")
+    bvals = torch.stack([k.vals32 for k in sks])
+    bci = torch.stack([k.col_idx for k in sks])
+    bv = torch.rand((bsz, n), dtype=torch.float32, device=device, generator=gen)
+    out_b = batched_block_ell_matvec(bvals, bci, bv)
+    ref_b = torch.stack([block_ell_matvec_ref(k.vals32, k.col_idx, bv[i].reshape(-1, k.block)).reshape(-1)
+                         for i, k in enumerate(sks)])
+    err_b = held("batched_block_ell_matvec", out_b, batched_block_ell_matvec(bvals, bci, bv), ref_b)
+    log(f"batched_block_ell_matvec B={bsz} ({bvals.numel() * 4} bytes of tiles): max_abs_err={err_b!r}")
+
+    # times: the row layout as the solver calls it (float64 v cast, launch,
+    # float32 output promoted), the bare launch, the plain version, and the
+    # library's BSR mat-vec; the transposed layout's bare launch; the batch
+    v32 = v.to(torch.float32)
+    flag = torch.zeros(1, dtype=torch.int32, device=device)
+    ms = time_ms(lambda: sparsify.block_ell_matvec(sk, v, flag))
+    bounds = {}
+    bare = {}
+    kernel_ms = {}
+    for name, lay in (("row", sk), ("transposed", skt)):
+        buf = torch.empty(lay.n, dtype=torch.float32, device=device)
+
+        def bare_launch(lay=lay, buf=buf):
+            _launch_block_ell_matvec(lay.vals32, lay.col_idx, v32, lay.row_ptr, buf, flag,
+                                     col_blocks=lay.m // lay.block, row_blocks_per_sketch=lay.n // lay.block)
+
+        bare[name] = time_ms(bare_launch)
+        kernel_ms[name] = device_ms(bare_launch)
+        nbytes = block_ell_bytes(lay)
+        bounds[name] = block_ell_bound(nbytes, lay.vals.shape[0], lay.max_blocks, lay.block) + (nbytes,)
+    plain_ms = time_ms(lambda: block_ell_matvec_ref(sk.vals32, sk.col_idx, v32.reshape(-1, sk.block)))
+    plain_dev = device_ms(lambda: block_ell_matvec_ref(sk.vals32, sk.col_idx, v32.reshape(-1, sk.block)))
+    lib_ms, lib_note = bsr_library_ms(sk, v32)
+    bbuf = torch.empty(bsz * n, dtype=torch.float32, device=device)
+
+    def bare_batched():
+        _launch_block_ell_matvec(bvals.reshape(-1, *bvals.shape[2:]), bci.reshape(-1, bci.shape[-1]), bv,
+                                 None, bbuf, flag, col_blocks=n // sk.block, row_blocks_per_sketch=n // sk.block)
+
+    bare_b = time_ms(bare_batched)
+    kernel_b = device_ms(bare_batched)
+    ms_b = time_ms(lambda: batched_block_ell_matvec(bvals, bci, bv))
+    nbytes_b = 4 * (bvals.numel() + bci.numel() + 2 * bv.numel())
+    bound_b = block_ell_bound(nbytes_b, bsz * sk.vals.shape[0], sk.max_blocks, sk.block)
+    check(int(flag) == 0, "the timed launches flagged a column id")
+    for name in ("row", "transposed"):
+        bound, bound_by, nbytes = bounds[name]
+        log(f"block_ell_matvec times, {name} layout: bare launch {bare[name]!r} ms (CUDA events), "
+            f"kernel {kernel_ms[name]!r} ms (profiler, device time), bound {bound!r} ms ({bound_by}: {nbytes} bytes)")
+    log(f"block_ell_matvec times, row layout (CUDA events): wrapper as the solver calls it {ms!r} ms, "
+        f"plain {plain_ms!r} ms (device time {plain_dev!r} ms, profiler), "
+        f"library (torch.sparse_bsr_tensor @ v, float32) {lib_ms!r} ms ({lib_note})")
+    log(f"batched_block_ell_matvec B={bsz} times: wrapper {ms_b!r} ms, bare launch {bare_b!r} ms, "
+        f"kernel {kernel_b!r} ms (profiler), bound {bound_b[0]!r} ms ({bound_b[1]}: {nbytes_b} bytes)")
+    del bvals, bci, bv, sks
+    return {
+        "name": "block_ell_matvec",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/block_ell.cu",
+        "replaces": "src/repro/kernels/block_ell.py:40",
+        "launches": None,  # filled in from the block-ELL path's run
+        "max_abs_err": max(errs + [err64]),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bounds["row"][0],
+        "bound_by": bounds["row"][1],
+        "library_ms": lib_ms,
+    }
+
+
+def run_block_ell_path(n: int, device, max_iter: int = 1000):
+    """``solve(problem, method="spar_sink_block_ell")`` at n: OT at
+    s = 16 s0, the same seed again (bitwise equal), and UOT; the launch
+    counts are set to 0 just before each solve and read just after it (2
+    launches for each iteration the loop executed). Returns the phase's B4
+    launches and the OT sketch's seed, s and result for the float64 check."""
+    import torch
+
+    import repro_torch as rt
+    from repro_torch.core.sinkhorn import CHECK_EVERY
+    from repro_torch.kernels import ops
+
+    ot, uot = block_ell_problems(n, device)
+    s = 16 * rt.s0(n)
+    total = 0
+    results = {}
+    for name, problem in (("ot", ot), ("ot-repeat", ot), ("uot", uot)):
+        # the sketch alone, timed apart from the solve (which builds it again)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.build_block_ell_sketch(problem, torch.Generator(device=device).manual_seed(0), s)
+        torch.cuda.synchronize()
+        sketch_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(device)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        sol = rt.solve(problem, method="spar_sink_block_ell", seed=0, s=s, tol=1e-6, max_iter=max_iter)
+        value = float(sol.value)  # syncs
+        wall_s = time.perf_counter() - t0
+        launches = ops.LAUNCHES["block_ell_matvec"]
+        total += launches
+        n_iter = int(sol.n_iter)
+        executed = min(max_iter, CHECK_EVERY * math.ceil(n_iter / CHECK_EVERY))
+        row = dict(run=name, n=n, s=s, n_iter=n_iter, executed=executed, status=sol.status_label,
+                   nnz=int(sol.nnz), value=value, sketch_s=sketch_s, solve_s=wall_s,
+                   ms_per_executed_iteration_after_sketch=(wall_s - sketch_s) / max(executed, 1) * 1e3,
+                   peak_device_bytes=torch.cuda.max_memory_allocated(device), block_ell_launches=launches)
+        log("block-ELL path " + json.dumps(row))
+        check(math.isfinite(value), f"block-ELL {name} value is not finite")
+        check(sol.status_label not in ("non_finite", "degenerate"), f"block-ELL {name} ended {sol.status_label}")
+        check(launches == 2 * executed,
+              f"block-ELL {name}: {launches} block_ell_matvec launches, not 2 x {executed} executed iterations")
+        results[name] = (value, n_iter)
+    check(results["ot"] == results["ot-repeat"],
+          f"repeated block-ELL OT run differs: {results['ot']} vs {results['ot-repeat']}")
+    log("block-ELL path: the repeated OT run is bitwise identical")
+    return total, s, results["ot"]
+
+
+def check_block_ell_accuracy(n: int, device, v_log: float, s: float, ot_result, seeds: int = 4) -> None:
+    """The mean relative error of spar_sink_block_ell over seeds against
+    phase 4's log value at n; then the card's own OT sketch of phase 6
+    solved by the port's float64 CPU path (the one labelled CPU run)."""
+    import torch
+
+    import repro_torch as rt
+    from repro_torch.core.api.solvers import _block_ell_solution
+    from repro_torch.core.sparsify import BlockEllKernel
+    from repro_torch.data.pointclouds import make_measures
+
+    a, b, x = make_measures("C1", n, 5, seed=1)
+    problem = rt.OTProblem(rt.PointCloudGeometry(x, device=device), a, b, 0.1)
+    errs = []
+    for seed in range(seeds):
+        sol = rt.solve(problem, method="spar_sink_block_ell", seed=seed, s=16 * rt.s0(n), tol=1e-6, max_iter=1000)
+        errs.append(abs(float(sol.value) - v_log) / abs(v_log))
+    rmae = sum(errs) / len(errs)
+    log(f"accuracy n={n}: spar_sink_block_ell s=16 s0 relative errors {errs!r}, mean {rmae!r}")
+    check(math.isfinite(rmae), "spar_sink_block_ell mean relative error is not finite")
+
+    ot, _ = block_ell_problems(n, device)
+    sk = rt.build_block_ell_sketch(ot, torch.Generator(device=device).manual_seed(0), s)
+
+    def to_cpu(lay, transposed=None):
+        return BlockEllKernel(lay.vals.cpu(), lay.col_idx.cpu(), lay.nblocks.cpu(), lay.n, lay.m,
+                              row_ptr=None if lay.row_ptr is None else lay.row_ptr.cpu(), transposed=transposed)
+
+    sk_cpu = to_cpu(sk, to_cpu(sk.transposed))
+    ot_cpu, _ = block_ell_problems(n, "cpu")
+    t0 = time.perf_counter()
+    sol = _block_ell_solution(ot_cpu, sk_cpu, 1e-6, 1000)
+    value = float(sol.value)
+    log(f"float64 CPU check (labelled CPU run) n={n}: the card's OT sketch solved on the CPU in float64: "
+        f"value {value!r} ({int(sol.n_iter)} it, {sol.status_label}, {time.perf_counter() - t0!r} s); "
+        f"on the card with float32 kernels: value {ot_result[0]!r} ({ot_result[1]} it); "
+        f"relative difference {abs(value - ot_result[0]) / abs(value)!r}")
+    check(math.isfinite(value), "the float64 CPU block-ELL value is not finite")
+
+
+def profile_solve(label: str, problem, **opts) -> None:
+    """Run one warm ``solve`` under `torch.profiler` and print where its
+    device time goes: the busiest kernels by device time, and the device's
     busy share of the run's wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import repro_torch as rt
-    from repro_torch.data.pointclouds import make_measures
 
-    a, b, x = make_measures("C1", n, 5, seed=0)
-    problem = rt.OTProblem(rt.PointCloudGeometry(x, device=device), a, b, 0.1)
-    opts = dict(method="spar_sink_mf", seed=0, s=4 * rt.s0(n), tol=1e-6, max_iter=max_iter)
+    float(rt.solve(problem, **opts).value)  # warm: kernel caches, the Geometry's K
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -557,10 +933,24 @@ def profile_main_path(n: int, device, max_iter: int = 200) -> None:
         reverse=True,
     )
     busy = sum(r[0] for r in rows)
-    log(f"profile (a): wall {wall_us / 1e3!r} ms, kernels {busy / 1e3!r} ms "
+    log(f"profile {label}: wall {wall_us / 1e3!r} ms, kernels {busy / 1e3!r} ms "
         f"(device busy share {busy / wall_us!r})")
     for dev_us, count, key in rows[:12]:
-        log(f"profile (a):   {dev_us / 1e3:10.3f} ms  {count:6d}x  {key[:100]}")
+        log(f"profile {label}:   {dev_us / 1e3:10.3f} ms  {count:6d}x  {key[:100]}")
+
+
+def profile_main_path(n: int, device, max_iter: int = 200) -> None:
+    """Run (a) once more under `torch.profiler`; then the block-ELL OT solve
+    of phase 6 at n = 8192."""
+    import repro_torch as rt
+    from repro_torch.data.pointclouds import make_measures
+
+    a, b, x = make_measures("C1", n, 5, seed=0)
+    problem = rt.OTProblem(rt.PointCloudGeometry(x, device=device), a, b, 0.1)
+    profile_solve("(a)", problem, method="spar_sink_mf", seed=0, s=4 * rt.s0(n), tol=1e-6, max_iter=max_iter)
+    ot, _ = block_ell_problems(8192, device)
+    profile_solve("block-ELL OT", ot, method="spar_sink_block_ell", seed=0, s=16 * rt.s0(8192),
+                  tol=1e-6, max_iter=1000)
 
 
 def main() -> int:
@@ -600,7 +990,7 @@ def main() -> int:
     entries += check_online_kernels(n, device, clock)
     launches, value_a = run_main_path(n, device)
     entries[0]["launches"] = launches["gathered_kernel"]
-    check_accuracy(8192, device)
+    v_log = check_accuracy(8192, device)
     fused_launches, x, u, v = run_fused_path(n, device)
     for entry in entries[1:]:
         entry["launches"] = fused_launches[entry["name"]]
@@ -611,6 +1001,12 @@ def main() -> int:
         f"run (a) spar_sink_mf {value_a!r}, relative error {rel!r}")
     check(math.isfinite(value_dense) and math.isfinite(rel), "non-finite n = 2^17 accuracy")
     del x, u, v
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    entries.append(check_block_ell_kernel(8192, device))
+    entries[-1]["launches"], s_be, ot_be = run_block_ell_path(8192, device)
+    check_block_ell_accuracy(8192, device, v_log, s_be, ot_be)
+    log(f"block-ELL phase {time.perf_counter() - t0!r} s")
     for entry in entries:
         check(entry["launches"] > 0, f"{entry['name']} was not launched on its path")
     if profile_run:

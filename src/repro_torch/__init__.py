@@ -3,7 +3,8 @@
 The main path is the paper's matrix-free estimator:
 ``solve(problem, method="spar_sink_mf")`` on an `OTProblem`/`UOTProblem`
 over a `PointCloudGeometry`, with the dense ``dense``/``log`` solvers as
-its accuracy oracle. Entry points run on the CUDA card unless the caller
+its accuracy oracle; ``method="spar_sink_block_ell"`` draws the sketch at
+tile granularity instead. Entry points run on the CUDA card unless the caller
 asks for the CPU (``device="cpu"`` or CPU tensors); see `repro_torch._device`.
 """
 from repro_torch.core.api import (
@@ -16,6 +17,7 @@ from repro_torch.core.api import (
     SparsePlan,
     UOTProblem,
     available_methods,
+    build_block_ell_sketch,
     build_mf_log_sketch,
     build_mf_sketch,
     get_solver,
@@ -34,6 +36,7 @@ __all__ = [
     "SparsePlan",
     "UOTProblem",
     "available_methods",
+    "build_block_ell_sketch",
     "build_mf_log_sketch",
     "build_mf_sketch",
     "default_cap",

@@ -3,7 +3,12 @@ from repro_torch.core.api.geometry import Geometry, PointCloudGeometry
 from repro_torch.core.api.problems import InvalidProblem, OTProblem, UOTProblem
 from repro_torch.core.api.registry import available_methods, get_solver, register_solver, solve
 from repro_torch.core.api.solution import Solution, SparsePlan
-from repro_torch.core.api.solvers import DEFAULT_TOL, build_mf_log_sketch, build_mf_sketch
+from repro_torch.core.api.solvers import (
+    DEFAULT_TOL,
+    build_block_ell_sketch,
+    build_mf_log_sketch,
+    build_mf_sketch,
+)
 
 __all__ = [
     "DEFAULT_TOL",
@@ -15,6 +20,7 @@ __all__ = [
     "SparsePlan",
     "UOTProblem",
     "available_methods",
+    "build_block_ell_sketch",
     "build_mf_log_sketch",
     "build_mf_sketch",
     "get_solver",

@@ -59,9 +59,10 @@ def _option_names(fn: SolverFn) -> list[str]:
 def solve(problem: OTProblem, method: str = "dense", **opts) -> Solution:
     """Solve an `OTProblem`/`UOTProblem` with a registered method.
 
-    Common options: ``tol``, ``max_iter``. ``spar_sink_mf`` also takes ``s``
-    (expected sketch size) and ``generator=`` (a `torch.Generator` on the
-    problem's device) or ``seed=``; see `repro_torch.core.api.solvers`.
+    Common options: ``tol``, ``max_iter``. The sketching methods
+    (``spar_sink_mf``, ``spar_sink_block_ell``) also take ``s`` (expected
+    sketch size) and ``generator=`` (a `torch.Generator` on the problem's
+    device) or ``seed=``; see `repro_torch.core.api.solvers`.
     """
     problem.check_valid()
     fn = get_solver(method)

@@ -8,6 +8,12 @@
                   factorized O(s log n) Poisson sketch + gathered-kernel
                   evaluation (the CUDA kernel on the card), no (n, m) array
                   anywhere; ``stabilize=True`` runs it in the log domain
+``spar_sink_block_ell``
+                  the importance sketch drawn at (Bk x Bk) tile granularity,
+                  stored in block-ELL layout with its transpose; both
+                  mat-vecs of an iteration are the CUDA block-ELL kernel on
+                  the card (scaling domain: needs ``eps`` large enough that
+                  ``exp(-C/eps) > 0``); builds the dense kernel
 ================= ==========================================================
 
 Every solver takes `OTProblem` and `UOTProblem` (``fe = lam/(lam+eps)``
@@ -40,10 +46,18 @@ from repro_torch.core.spar_sink import (
     coo_objective_uot_entries,
     coo_objective_uot_log_entries,
     default_cap,
+    default_max_blocks,
     log_plan_entries,
 )
 
-__all__ = ["DEFAULT_TOL", "build_mf_log_sketch", "build_mf_sketch"]
+__all__ = [
+    "DEFAULT_TOL",
+    "build_block_ell_sketch",
+    "build_mf_log_sketch",
+    "build_mf_sketch",
+    "mix_uniform",
+    "sampling_probs",
+]
 
 #: shared stopping-tolerance default of every registered iterative method
 DEFAULT_TOL = 1e-6
@@ -59,6 +73,40 @@ def _generator(problem: OTProblem, generator=None, seed: int | None = None) -> t
     if generator.device.type != problem.device.type:
         raise ValueError(f"generator is on {generator.device}, the problem on {problem.device}")
     return generator
+
+
+# --------------------------------------------------------------------------
+# Sampling probabilities shared by the sketch paths
+# --------------------------------------------------------------------------
+
+
+def mix_uniform(probs, shrinkage: float):
+    """Thm 1 condition (ii): keep ``p*_ij >= c3 s / n^2`` by uniform mixing.
+    Factored ``(fr, fc)`` probabilities pass only unmixed (mixing is rank-2)."""
+    if shrinkage <= 0.0:
+        return probs
+    if isinstance(probs, tuple):
+        raise ValueError(
+            "uniform mixing (shrinkage > 0) is rank-2 and cannot be applied "
+            "to factored probabilities; pass a dense probs array instead"
+        )
+    n, m = probs.shape
+    return (1.0 - shrinkage) * probs + shrinkage / (n * m)
+
+
+def sampling_probs(problem: OTProblem) -> torch.Tensor:
+    """Paper eq. (9) for OT, eq. (11) for UOT (degenerates to (9) at lam=inf)."""
+    if _is_uot(problem):
+        return sparsify.uot_sampling_probs(
+            problem.a, problem.b, problem.log_kernel(), float(problem.lam), float(problem.eps)
+        )
+    return sparsify.ot_sampling_probs(problem.a, problem.b)
+
+
+def _resolve_probs(problem: OTProblem, probs: torch.Tensor | None, shrinkage: float) -> torch.Tensor:
+    """The probability rule of the dense sketch paths: explicit ``probs``,
+    else eq. (9)/(11) by problem type, then uniform mixing."""
+    return mix_uniform(probs if probs is not None else sampling_probs(problem), shrinkage)
 
 
 # --------------------------------------------------------------------------
@@ -286,3 +334,91 @@ def _solve_spar_sink_mf(
         method="spar_sink_mf", problem=problem, value=value, result=res, domain=domain,
         nnz=sk.nnz, overflowed=sk.overflowed, _plan_thunk=plan,
     )
+
+
+# --------------------------------------------------------------------------
+# The tile-granular sketching solver (block-ELL layout)
+# --------------------------------------------------------------------------
+
+
+def _block_ell_solution(problem: OTProblem, sk: sparsify.BlockEllKernel, tol: float, max_iter: int) -> Solution:
+    """Scaling-domain Sinkhorn on a block-ELL sketch, and its `Solution`.
+
+    On the card both mat-vecs launch the block-ELL kernel (``K~^T u`` on the
+    transposed layout); the kernel flags a column id out of range, and the
+    flag is read once, after the loop. The objective is taken on the
+    densified sketch, which is then dropped: the `Solution` keeps the tiles
+    and rebuilds the dense plan on first access.
+    """
+    bad = torch.zeros(1, dtype=torch.int32, device=problem.device) if sk.vals.is_cuda else None
+    res = generic_scaling_loop(
+        lambda v: sparsify.block_ell_matvec(sk, v, bad),
+        lambda u: sparsify.block_ell_rmatvec(sk, u, bad),
+        problem.a, problem.b, problem.fe,
+        tol=tol, max_iter=max_iter,
+    )
+    if bad is not None and bool(bad):
+        raise IndexError("the block-ELL sketch holds a column id out of range")
+    Kt = sparsify.block_ell_to_dense(sk)
+    value = problem.objective(plan_from_scalings(res.u, Kt, res.v))
+    nnz = torch.sum(Kt > 0)
+    del Kt
+    return Solution(
+        method="spar_sink_block_ell", problem=problem, value=value, result=res, domain="scaling",
+        nnz=nnz,
+        _plan_thunk=lambda: plan_from_scalings(res.u, sparsify.block_ell_to_dense(sk), res.v),
+    )
+
+
+def build_block_ell_sketch(
+    problem: OTProblem,
+    generator: torch.Generator,
+    s: float,
+    *,
+    block: int = 128,
+    max_blocks: int | None = None,
+    shrinkage: float = 0.0,
+    probs: torch.Tensor | None = None,
+) -> sparsify.BlockEllKernel:
+    """The tile-granular importance sketch of ``spar_sink_block_ell``, with
+    its transposed layout: tiles of the dense kernel kept with
+    ``p*_T = min(1, s/Bk^2 * p_T)`` (``p_T`` the tile sum of eq. 9/11, or of
+    ``probs``, mixed with ``shrinkage``) and rescaled by ``1/p*_T``, the
+    heaviest tile of every row- and column-block forced in; ``max_blocks``
+    (default `default_max_blocks`) is the ELL width. Builds the dense
+    kernel, so a `PointCloudGeometry` above its ``dense_guard`` raises;
+    ``n`` and ``m`` must be multiples of ``block``."""
+    n, m = problem.shape
+    if n % block or m % block:
+        raise ValueError(f"spar_sink_block_ell needs n and m divisible by block={block}; got {n} x {m}")
+    K = problem.kernel()
+    tile_p = sparsify.tile_probs_from_elem(_resolve_probs(problem, probs, shrinkage), block)
+    if max_blocks is None:
+        max_blocks = default_max_blocks(n, s, block)
+    return sparsify.sparsify_block_ell(generator, K, tile_p, s, block, max_blocks)
+
+
+@register_solver("spar_sink_block_ell")
+def _solve_spar_sink_block_ell(
+    problem: OTProblem,
+    *,
+    s: float,
+    generator: torch.Generator | None = None,
+    seed: int | None = None,
+    block: int = 128,
+    max_blocks: int | None = None,
+    shrinkage: float = 0.0,
+    probs: torch.Tensor | None = None,
+    tol: float = DEFAULT_TOL,
+    max_iter: int = 1000,
+) -> Solution:
+    """Spar-Sink with the importance sketch drawn at tile granularity
+    (`build_block_ell_sketch`; the random source is ``generator``, a
+    `torch.Generator` on the problem's device, or ``seed``), iterated in the
+    scaling domain on the block-ELL layouts; the objective is taken on the
+    densified sketch."""
+    gen = _generator(problem, generator, seed)
+    sk = build_block_ell_sketch(
+        problem, gen, s, block=block, max_blocks=max_blocks, shrinkage=shrinkage, probs=probs
+    )
+    return _block_ell_solution(problem, sk, tol, max_iter)

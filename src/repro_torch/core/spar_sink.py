@@ -1,9 +1,9 @@
 """Spar-Sink sizing helpers and the O(s) sparse objectives (paper Alg. 3/4).
 
-The main-path part of ``repro.core.spar_sink``: ``s0``/``default_cap`` and
-the entropic objective evaluated on the sketch's entries from gathered
-costs, in the scaling domain (scalings ``u, v``) and the log domain
-(potentials ``f, g``).
+The ported part of ``repro.core.spar_sink``: ``s0``, ``default_cap``,
+``default_max_blocks`` and the entropic objective evaluated on the
+sketch's entries from gathered costs, in the scaling domain (scalings
+``u, v``) and the log domain (potentials ``f, g``).
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ __all__ = [
     "coo_objective_uot_entries",
     "coo_objective_uot_log_entries",
     "default_cap",
+    "default_max_blocks",
     "log_plan_entries",
     "s0",
 ]
@@ -33,6 +34,15 @@ def s0(n: int) -> float:
 def default_cap(s: float) -> int:
     """Static COO capacity: E[nnz] <= s, Poisson tail ~ sqrt(s)."""
     return int(s + 6.0 * math.sqrt(s) + 16)
+
+
+def default_max_blocks(n: int, s: float, block: int) -> int:
+    """Static ELL width of the block-ELL sketch: about 4x the expected kept
+    tiles per row-block (+4 slack), floored at 4, capped at the full block
+    row (the cap applies after the floor, so it holds for n // block < 4)."""
+    nrb = max(n // block, 1)
+    want = int(4 * s / (block * block) / nrb) + 4
+    return max(1, min(nrb, max(4, want)))
 
 
 def _elem_entropy(t: torch.Tensor) -> torch.Tensor:

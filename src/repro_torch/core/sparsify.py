@@ -1,16 +1,25 @@
-"""Matrix-free importance sparsification of the Gibbs kernel (paper Sec. 3).
+"""Importance sparsification of the Gibbs kernel (paper Sec. 3).
 
-The main-path part of ``repro.core.sparsify``: the factorized Poisson
-sketch (eq. 7 for the rank-1 probabilities of eq. 9, with eq. 11
-acceptance thinning for UOT), in the scaling domain (`SparseKernelCOO`) and
-in log space (`LogSparseKernelCOO`), and the sorted-COO reductions the
-Sinkhorn loops run on.
+The ported parts of ``repro.core.sparsify``:
+
+* the sampling probabilities: eq. (9) for OT, as row/col factors and
+  dense; eq. (11) for UOT, in log space; uniform (Rand-Sink);
+* the matrix-free factorized Poisson sketch (eq. 7 for the rank-1
+  probabilities of eq. 9, with eq. 11 acceptance thinning for UOT), in the
+  scaling domain (`SparseKernelCOO`) and in log space
+  (`LogSparseKernelCOO`), and the sorted-COO reductions the Sinkhorn loops
+  run on;
+* the tile-granular sketch in block-ELL layout (`BlockEllKernel`): Poisson
+  sampling of (Bk x Bk) tiles, stored with its transposed layout, and the
+  block-ELL mat-vecs.
 
 Every reduction here is over **sorted** segments (rows, or columns through
 the ``csort`` permutation) and goes through `torch.segment_reduce` with
 offsets, never through ``index_add_``/``scatter_add_``: on CUDA those sum
 with atomics in an order that changes from run to run, and the same inputs
-must give the same result.
+must give the same result. The one ``index_add_`` (`block_ell_rmatvec`)
+runs on CPU tensors only, where it is sequential; on CUDA ``K~^T u`` is the
+block-ELL kernel on the transposed layout.
 """
 from __future__ import annotations
 
@@ -19,21 +28,35 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.core.sinkhorn import _masked_log
+
 __all__ = [
+    "BlockEllKernel",
     "LogSparseKernelCOO",
     "SparseKernelCOO",
+    "block_ell_matvec",
+    "block_ell_rmatvec",
+    "block_ell_to_dense",
+    "block_ell_uniforms",
     "coo_lse_col",
     "coo_lse_row",
     "coo_matvec",
     "coo_rmatvec",
     "col_layout",
     "ot_sampling_prob_factors",
+    "ot_sampling_probs",
+    "ot_tile_probs",
     "row_offsets",
     "segment_logsumexp",
     "segment_sum",
     "sorted_offsets",
+    "sparsify_block_ell",
+    "sparsify_block_ell_from_uniforms",
     "sparsify_coo_mf",
     "sparsify_coo_mf_log",
+    "tile_probs_from_elem",
+    "uniform_probs",
+    "uot_sampling_probs",
 ]
 
 
@@ -41,6 +64,27 @@ def ot_sampling_prob_factors(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Te
     """Row/col factors ``(ra, rb)`` with ``p_ij = ra_i * rb_j`` (eq. 9)."""
     sa, sb = torch.sqrt(a), torch.sqrt(b)
     return sa / torch.sum(sa), sb / torch.sum(sb)
+
+
+def ot_sampling_probs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dense eq. (9): ``p_ij = ra_i * rb_j``."""
+    ra, rb = ot_sampling_prob_factors(a, b)
+    return ra[:, None] * rb[None, :]
+
+
+def uot_sampling_probs(a: torch.Tensor, b: torch.Tensor, logK: torch.Tensor, lam: float, eps: float) -> torch.Tensor:
+    """Eq. (11), evaluated in log space. ``logK = -C/eps`` (``-inf`` = blocked,
+    which gets probability exactly 0). Degenerates to eq. (9) as ``lam -> inf``."""
+    c_ab = lam / (2.0 * lam + eps)
+    c_k = eps / (2.0 * lam + eps)
+    logp = c_ab * (_masked_log(a)[:, None] + _masked_log(b)[None, :]) + c_k * logK
+    p = torch.exp(logp - torch.logsumexp(logp.reshape(-1), 0))
+    return torch.where(torch.isneginf(logp), 0.0, p)
+
+
+def uniform_probs(n: int, m: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Rand-Sink: every element equally likely."""
+    return torch.full((n, m), 1.0 / (n * m), dtype=dtype, device=device)
 
 
 class SparseKernelCOO(NamedTuple):
@@ -308,3 +352,243 @@ def sparsify_coo_mf_log(
         n_accepted=n_accepted,
     )
     return sk, c_e
+
+
+# --------------------------------------------------------------------------
+# Block-ELL sketch (tile-granular Poisson sampling)
+# --------------------------------------------------------------------------
+
+
+class BlockEllKernel(NamedTuple):
+    """Per row-block a fixed-width list of kept (Bk x Bk) tiles, rescaled by
+    ``1/p*_T``, with their column-block ids; padded slots are zero tiles with
+    column id 0, so they add exact zeros.
+
+    The rows of ``vals`` are ELL rows of ``max_blocks`` slots. Without
+    ``row_ptr`` each row-block is one ELL row (the reference's layout). With
+    it, row-block ``r`` is the consecutive ELL rows ``row_ptr[r]:row_ptr[r+1]``,
+    so a row-block with more tiles than one row holds loses none: the
+    transposed layout uses this for the column-blocks that many row-blocks
+    share (rank-1 eq. 9 probabilities force every row-block's heaviest tile
+    into the same column-block).
+    """
+
+    vals: torch.Tensor  # (ell_rows, max_blocks, Bk, Bk) rescaled kernel tiles (0-padded)
+    col_idx: torch.Tensor  # (ell_rows, max_blocks) int32 column-block ids (0-padded)
+    nblocks: torch.Tensor  # (ell_rows,) int32 valid slots per ELL row
+    n: int
+    m: int
+    #: (n/Bk + 1,) int32 ELL-row offsets of the row-blocks; None: one ELL row each
+    row_ptr: torch.Tensor | None = None
+    #: the same sketch transposed (``K~^T`` in block-ELL layout, m/Bk
+    #: row-blocks), which ``K~^T u`` runs on with the CUDA kernel
+    transposed: "BlockEllKernel | None" = None
+    #: float32 copy of ``vals`` that the CUDA kernel reads, made once when a
+    #: CUDA sketch is built (``None`` on the CPU)
+    vals32: torch.Tensor | None = None
+
+    @property
+    def block(self) -> int:
+        return self.vals.shape[-1]
+
+    @property
+    def max_blocks(self) -> int:
+        return self.vals.shape[1]
+
+    def row_blocks_of_ell_rows(self) -> torch.Tensor:
+        """The row-block of each ELL row."""
+        nrb = self.n // self.block
+        ids = torch.arange(nrb, device=self.vals.device)
+        if self.row_ptr is None:
+            return ids
+        return torch.repeat_interleave(ids, torch.diff(self.row_ptr.long()), output_size=self.vals.shape[0])
+
+
+def ot_tile_probs(a: torch.Tensor, b: torch.Tensor, bk: int) -> torch.Tensor:
+    """Tile-aggregated eq. (9) probabilities in O(n), exact because eq. (9)
+    factorizes: ``p_T = (sum_{i in T} ra_i) (sum_{j in T} rb_j)``."""
+    ra, rb = ot_sampling_prob_factors(a, b)
+    ta = torch.sum(ra.reshape(-1, bk), dim=1)
+    tb = torch.sum(rb.reshape(-1, bk), dim=1)
+    return ta[:, None] * tb[None, :]
+
+
+def tile_probs_from_elem(probs: torch.Tensor, bk: int) -> torch.Tensor:
+    """Tile aggregation of arbitrary element probabilities (the UOT eq. 11 path)."""
+    n, m = probs.shape
+    return probs.reshape(n // bk, bk, m // bk, bk).sum(dim=(1, 3))
+
+
+def _tile_keep_probs(tile_probs: torch.Tensor, s: float, bk: int, ensure: bool) -> torch.Tensor:
+    """``p*_T = min(1, (s/Bk^2) p_T)``; with ``ensure``, the heaviest tile of
+    every row-block gets ``p*_T = 1``, and the k-th heaviest column-block is
+    forced in at the (k mod nrb)-th heaviest row-block (eq. 9 tile
+    probabilities are rank-1, so every column's own argmax is one row). Still
+    exactly unbiased; no row- or column-block of the sketch is empty."""
+    p_star = torch.clamp_max((s / float(bk * bk)) * tile_probs, 1.0)
+    if ensure:
+        nrb, ncb = tile_probs.shape
+        dev = tile_probs.device
+        p_star[torch.arange(nrb, device=dev), torch.argmax(tile_probs, dim=1)] = 1.0
+        # the reference sorts with jnp.argsort, which is stable: tied masses
+        # (uniform weights) must keep index order here too
+        row_order = torch.argsort(-torch.sum(tile_probs, dim=1), stable=True)
+        col_order = torch.argsort(-torch.sum(tile_probs, dim=0), stable=True)
+        p_star[row_order[torch.arange(ncb, device=dev) % nrb], col_order] = 1.0
+    return p_star
+
+
+def block_ell_uniforms(generator: torch.Generator, shape: tuple[int, int], dtype: torch.dtype) -> torch.Tensor:
+    """The sketch's random draw: one uniform per tile, ``(nrb, ncb)``, from
+    ``generator`` on its device (tile T is kept iff its uniform < ``p*_T``)."""
+    return torch.rand(shape, dtype=dtype, device=generator.device, generator=generator)
+
+
+def _ell_from_mask(mask, probs, tiles, scale, width: int, *, split: bool):
+    """Lay the kept tiles of each row of ``mask`` into ELL rows of ``width``
+    slots, the most important first (ties in index order), each slot's tile
+    rescaled by ``scale``; slots past the kept count hold zero tiles with
+    column id 0. Without ``split`` every row is one ELL row and drops the
+    tiles past ``width`` (the reference's rule); with it a row takes as many
+    ELL rows as its tiles fill. Returns ``(vals, col_idx, nblocks, row_ptr,
+    kept)``: ``row_ptr`` is None when every row is one ELL row, and ``kept``
+    marks the tiles that got a slot."""
+    nrows, ncols = mask.shape
+    dev = mask.device
+    counts = torch.sum(mask, dim=1)
+    order = torch.argsort(-torch.where(mask, probs, -1.0), dim=1, stable=True)
+    per_row = torch.clamp_min(-(-counts // width), 1) if split else torch.ones_like(counts)
+    owner = torch.repeat_interleave(torch.arange(nrows, device=dev), per_row)  # ELL row -> row
+    first = torch.cumsum(per_row, 0) - per_row
+    rank0 = (torch.arange(owner.shape[0], device=dev) - first[owner]) * width
+    ranks = rank0[:, None] + torch.arange(width, device=dev)[None, :]
+    valid = ranks < counts[owner][:, None]
+    ci = torch.where(valid, torch.gather(order[owner], 1, torch.clamp_max(ranks, ncols - 1)), 0)
+    rows = owner[:, None].expand_as(ci)
+    vals = torch.where(
+        valid[:, :, None, None], tiles[rows, ci] * scale[rows, ci][:, :, None, None], 0.0
+    )
+    kept = torch.zeros_like(mask)
+    kept[rows[valid], ci[valid]] = True
+    nblocks = torch.clamp(counts[owner] - rank0, 0, width).to(torch.int32)
+    row_ptr = None
+    if owner.shape[0] != nrows:
+        row_ptr = torch.cat([per_row.new_zeros(1), torch.cumsum(per_row, 0)]).to(torch.int32)
+    return vals, ci.to(torch.int32), nblocks, row_ptr, kept
+
+
+def _with_float32(sk: BlockEllKernel) -> BlockEllKernel:
+    """A CUDA sketch gets the float32 tiles its kernel reads, once."""
+    if sk.vals.device.type != "cuda":
+        return sk
+    return sk._replace(vals32=sk.vals.to(torch.float32).contiguous())
+
+
+def sparsify_block_ell_from_uniforms(
+    uniforms: torch.Tensor,
+    K: torch.Tensor,
+    tile_probs: torch.Tensor,
+    s: float,
+    bk: int,
+    max_blocks: int,
+    ensure_rows: bool = True,
+) -> BlockEllKernel:
+    """The block-ELL sketch of ``K`` for a given draw ``uniforms`` (one per
+    tile, as `block_ell_uniforms` makes them): tile T is kept iff
+    ``uniforms_T < p*_T = min(1, (s/Bk^2) p_T)`` and rescaled by ``1/p*_T``,
+    the tile-granular analogue of eq. (7), unbiased for the same reason.
+    ``s`` is the element budget; ``s/Bk^2`` is the tile budget.
+
+    A row-block with more than ``max_blocks`` kept tiles drops the least
+    important ones, as in the reference. The transposed layout
+    (``.transposed``) holds exactly the tiles of the row layout: a
+    column-block with more than ``max_blocks`` of them spans several ELL
+    rows (``row_ptr``), where the reference's ``sparsify_block_ell_pair``
+    drops the excess. Where no column-block overflows, both layouts equal
+    the reference's pair for the same draw.
+    """
+    n, m = K.shape
+    nrb, ncb = n // bk, m // bk
+    p_star = _tile_keep_probs(tile_probs, s, bk, ensure_rows)
+    keep = uniforms < p_star
+    scale = 1.0 / torch.clamp_min(p_star, 1e-300)
+    tiles = K.reshape(nrb, bk, ncb, bk).permute(0, 2, 1, 3)  # (nrb, ncb, Bk, Bk)
+    vals, ci, nb, _, kept = _ell_from_mask(keep, tile_probs, tiles, scale, max_blocks, split=False)
+    vals_t, ci_t, nb_t, ptr_t, _ = _ell_from_mask(
+        kept.T, tile_probs.T, tiles.permute(1, 0, 3, 2), scale.T, max_blocks, split=True
+    )
+    transposed = _with_float32(BlockEllKernel(vals_t, ci_t, nb_t, m, n, row_ptr=ptr_t))
+    return _with_float32(BlockEllKernel(vals, ci, nb, n, m, transposed=transposed))
+
+
+def sparsify_block_ell(
+    generator: torch.Generator,
+    K: torch.Tensor,
+    tile_probs: torch.Tensor,
+    s: float,
+    bk: int,
+    max_blocks: int,
+    ensure_rows: bool = True,
+) -> BlockEllKernel:
+    """Poisson-sample (Bk x Bk) tiles of ``K`` with ``generator``: the draw of
+    `block_ell_uniforms`, then `sparsify_block_ell_from_uniforms`. The
+    sketch carries its transposed layout, so it stands for the reference's
+    ``sparsify_block_ell_pair`` as well."""
+    uniforms = block_ell_uniforms(generator, tuple(tile_probs.shape), tile_probs.dtype)
+    return sparsify_block_ell_from_uniforms(uniforms, K, tile_probs, s, bk, max_blocks, ensure_rows)
+
+
+def block_ell_matvec(sk: BlockEllKernel, v: torch.Tensor, bad_index: torch.Tensor | None = None) -> torch.Tensor:
+    """``K~ v``: gather v-blocks by column id, one (Bk x Bk) @ (Bk,) per slot,
+    summed over each row-block's slots.
+
+    CPU sketches run the reference's gather + einsum in ``v``'s dtype (and
+    a sorted segment sum over the ELL rows of a row-block, where it has
+    several). CUDA sketches launch the block-ELL kernel on the float32 tiles
+    and promote its float32 output to ``v``'s dtype; ``bad_index`` is passed
+    on to the kernel wrapper (`repro_torch.kernels.ops.block_ell_matvec`).
+    """
+    if sk.vals.device.type == "cuda":
+        from repro_torch.kernels.ops import block_ell_matvec as kernel
+
+        return kernel(sk.vals32, sk.col_idx, v, row_ptr=sk.row_ptr, bad_index=bad_index).to(v.dtype)
+    bk = sk.block
+    gathered = v.reshape(sk.m // bk, bk)[sk.col_idx.long()]  # (ell_rows, max_blocks, Bk)
+    out = torch.einsum("rkij,rkj->ri", sk.vals, gathered)
+    if sk.row_ptr is not None:
+        out = torch.segment_reduce(out, "sum", offsets=sk.row_ptr.long(), axis=0, initial=0.0)
+    return out.reshape(sk.n)
+
+
+def block_ell_rmatvec(sk: BlockEllKernel, u: torch.Tensor, bad_index: torch.Tensor | None = None) -> torch.Tensor:
+    """``K~^T u``. CUDA sketches run `block_ell_matvec` on the transposed
+    layout (the kernel sums each output in one fixed order: no atomics, no
+    scatter) and raise without one. CPU sketches run the reference's
+    per-tile ``(Bk,) @ (Bk x Bk)`` and add the results into column blocks in
+    slot order (a sequential ``index_add_``)."""
+    if sk.vals.device.type == "cuda":
+        if sk.transposed is None:
+            raise ValueError(
+                "K~^T u on CUDA runs the block-ELL kernel on the transposed "
+                "layout, and this sketch carries none"
+            )
+        return block_ell_matvec(sk.transposed, u, bad_index)
+    bk = sk.block
+    ublocks = u.reshape(sk.n // bk, bk)[sk.row_blocks_of_ell_rows()]
+    contrib = torch.einsum("rkij,ri->rkj", sk.vals, ublocks)
+    out = torch.zeros((sk.m // bk, bk), dtype=contrib.dtype, device=contrib.device)
+    out.index_add_(0, sk.col_idx.reshape(-1).long(), contrib.reshape(-1, bk))
+    return out.reshape(sk.m)
+
+
+def block_ell_to_dense(sk: BlockEllKernel) -> torch.Tensor:
+    """Densify: each valid slot's tile is written once (the valid column ids
+    of a row-block are distinct), so the result is the same on every device
+    and every run."""
+    bk = sk.block
+    nrb, ncb = sk.n // bk, sk.m // bk
+    dense = torch.zeros((nrb, ncb, bk, bk), dtype=sk.vals.dtype, device=sk.vals.device)
+    valid = torch.arange(sk.max_blocks, device=sk.vals.device)[None, :] < sk.nblocks[:, None]
+    rows = sk.row_blocks_of_ell_rows()[:, None].expand_as(sk.col_idx)
+    dense[rows[valid], sk.col_idx[valid].long()] = sk.vals[valid]
+    return dense.permute(0, 2, 1, 3).reshape(sk.n, sk.m)

@@ -14,9 +14,14 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.api.geometry import PointCloudGeometry
 from repro_torch.core.api.problems import OTProblem, UOTProblem
-from repro_torch.core.sparsify import LogSparseKernelCOO, SparseKernelCOO
+from repro_torch.core.sparsify import (
+    BlockEllKernel,
+    LogSparseKernelCOO,
+    SparseKernelCOO,
+    _with_float32,
+)
 
-__all__ = ["problem_from_numpy", "sketch_from_numpy"]
+__all__ = ["block_ell_sketch_from_numpy", "problem_from_numpy", "sketch_from_numpy"]
 
 
 def problem_from_numpy(
@@ -86,3 +91,47 @@ def sketch_from_numpy(
         n_proposed=scalar(n_proposed, torch.int64),
         n_accepted=scalar(n_accepted, torch.int64),
     )
+
+
+def _valid_pairs(vals, col_idx, nblocks) -> set[tuple[int, int]]:
+    valid = np.arange(vals.shape[1])[None, :] < np.asarray(nblocks)[:, None]
+    rows = np.nonzero(valid)[0]
+    return set(zip(rows.tolist(), np.asarray(col_idx)[valid].tolist()))
+
+
+def block_ell_sketch_from_numpy(
+    vals,
+    col_idx,
+    nblocks,
+    n: int,
+    m: int,
+    *,
+    vals_t,
+    col_idx_t,
+    nblocks_t,
+    device=None,
+) -> BlockEllKernel:
+    """A `BlockEllKernel` with its transposed layout on ``device`` from the
+    arrays of the reference's ``sparsify_block_ell_pair`` (row layout, then
+    the ``*_t`` transposed one). The transposed layout must hold exactly
+    the row layout's tiles (it does unless a column-block overflowed the
+    reference's ``max_blocks``), else `ValueError`. Column ids become int32;
+    on CUDA the float32 tiles of the kernel are made here."""
+    if _valid_pairs(vals, col_idx, nblocks) != {
+        (r, c) for c, r in _valid_pairs(vals_t, col_idx_t, nblocks_t)
+    }:
+        raise ValueError(
+            "the transposed layout does not hold the row layout's tiles (a "
+            "column-block overflowed max_blocks); K~^T u would not be the transpose"
+        )
+    dev = resolve_device(device)
+
+    def layout(v, ci, nb, rows, cols, transposed=None):
+        return _with_float32(BlockEllKernel(
+            torch.tensor(np.asarray(v), device=dev),
+            torch.tensor(np.asarray(ci, np.int32), device=dev),
+            torch.tensor(np.asarray(nb, np.int32), device=dev),
+            int(rows), int(cols), transposed=transposed,
+        ))
+
+    return layout(vals, col_idx, nblocks, n, m, layout(vals_t, col_idx_t, nblocks_t, m, n))

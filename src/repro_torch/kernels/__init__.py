@@ -6,6 +6,8 @@ The public names are those of the reference's ``repro.kernels`` that the
 port has so far.
 """
 from repro_torch.kernels.ops import (
+    batched_block_ell_matvec,
+    block_ell_matvec,
     fused_sinkhorn_solve,
     gathered_kernel,
     online_lse,
@@ -13,6 +15,8 @@ from repro_torch.kernels.ops import (
 )
 
 __all__ = [
+    "batched_block_ell_matvec",
+    "block_ell_matvec",
     "fused_sinkhorn_solve",
     "gathered_kernel",
     "online_lse",

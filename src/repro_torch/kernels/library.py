@@ -45,6 +45,9 @@ SIGNATURES = {
     "online_matvec": (_P, _P, _P, _I64, _I64, _INT, _F32, _INT, _F32, _P, _P),
     # x, y, g, n, m, d, eps, wfr, eta, out, stream
     "online_lse": (_P, _P, _P, _I64, _I64, _INT, _F32, _INT, _F32, _P, _P),
+    # vals, col_idx, v, row_ptr, row_blocks, ell_rows, max_blocks, bk, col_blocks,
+    # row_blocks_per_sketch, out, bad_index, stream
+    "block_ell_matvec": (_P, _P, _P, _P, _I64, _I64, _I64, _INT, _I64, _I64, _P, _P, _P),
 }
 
 #: kernel name -> number of launches since the last `reset_launch_counts`

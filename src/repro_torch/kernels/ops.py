@@ -14,13 +14,21 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.sinkhorn import SinkhornResult, generic_scaling_loop
+from repro_torch.kernels.block_ell import _launch_block_ell_matvec
 from repro_torch.kernels.fused_sinkhorn import _launch_online_lse, _launch_online_matvec
 from repro_torch.kernels.gather_kernel import _launch_gathered_kernel
 from repro_torch.kernels.library import COSTS, LAUNCHES, reset_launch_counts
-from repro_torch.kernels.ref import gathered_kernel_ref, online_lse_ref, online_matvec_ref
+from repro_torch.kernels.ref import (
+    block_ell_matvec_ref,
+    gathered_kernel_ref,
+    online_lse_ref,
+    online_matvec_ref,
+)
 
 __all__ = [
     "LAUNCHES",
+    "batched_block_ell_matvec",
+    "block_ell_matvec",
     "fused_sinkhorn_solve",
     "gathered_kernel",
     "online_lse",
@@ -183,3 +191,112 @@ def fused_sinkhorn_solve(
         lambda u: online_matvec(yf, xf, u, eps=eps, cost=cost, eta=eta),
         a, b, fe, tol=tol, max_iter=max_iter,
     )
+
+
+#: the largest tile side the CUDA kernel stages (one v block in 32 KB)
+MAX_BLOCK = 8192
+
+
+def _block_ell(name: str, vals, col_idx, v, row_ptr, bad_index) -> torch.Tensor:
+    """The checks and dispatch shared by `block_ell_matvec` and
+    `batched_block_ell_matvec`, on B sketches (a leading batch axis on
+    every input but ``row_ptr``, which B = 1 alone takes). Returns
+    ``(B, nrb * Bk)`` float32."""
+    if vals.ndim != 5 or vals.shape[-1] != vals.shape[-2]:
+        raise ValueError(f"{name}: vals must be (rows, maxb, Bk, Bk) tiles; got {tuple(vals.shape)}")
+    bsz, rows, maxb, bk = vals.shape[:4]
+    if tuple(col_idx.shape) != (bsz, rows, maxb):
+        raise ValueError(f"{name}: col_idx must hold {(rows, maxb)} ids per sketch to match vals; "
+                         f"got {tuple(col_idx.shape)}")
+    if v.ndim != 2 or v.shape[0] != bsz or bk == 0 or v.shape[1] % bk:
+        raise ValueError(f"{name}: v must hold whole blocks of Bk = {bk} values per sketch; "
+                         f"got {tuple(v.shape)}")
+    if not (vals.is_floating_point() and v.is_floating_point()):
+        raise TypeError(f"{name}: vals and v must be floating point; got {vals.dtype}, {v.dtype}")
+    for what, ids in (("col_idx", col_idx), ("row_ptr", row_ptr)):
+        if ids is not None and ids.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"{name}: {what} must be int32 or int64; got {ids.dtype}")
+    if row_ptr is not None and row_ptr.ndim != 1:
+        raise ValueError(f"{name}: row_ptr must be 1-d; got {tuple(row_ptr.shape)}")
+    dev = _one_device(name, vals, col_idx, v, *([] if row_ptr is None else [row_ptr]))
+    ncb = v.shape[1] // bk
+    nrb = rows if row_ptr is None else row_ptr.shape[0] - 1
+    if dev.type == "cpu":
+        if col_idx.numel() and bool((col_idx < 0).any() | (col_idx >= ncb).any()):
+            raise IndexError(f"{name}: column ids out of range [0, {ncb})")
+        if row_ptr is not None and not (
+            int(row_ptr[0]) == 0 and int(row_ptr[-1]) == rows and bool((torch.diff(row_ptr) >= 0).all())
+        ):
+            raise IndexError(f"{name}: row_ptr is not a non-decreasing cover of the {rows} ELL rows")
+        offsets = (torch.arange(bsz) * ncb)[:, None, None]
+        out = block_ell_matvec_ref(
+            vals.reshape(bsz * rows, maxb, bk, bk),
+            (col_idx.long() + offsets).reshape(bsz * rows, maxb),
+            v.reshape(bsz * ncb, bk),
+            row_ptr,
+        )
+        return out.reshape(bsz, nrb * bk)
+    if bk > MAX_BLOCK:
+        raise ValueError(f"{name}: the CUDA kernel takes Bk <= {MAX_BLOCK}; got {bk}")
+    vf = vals.to(torch.float32).contiguous()
+    ci = col_idx.to(torch.int32).contiguous()
+    wf = v.to(torch.float32).contiguous()
+    rp = None if row_ptr is None else row_ptr.to(torch.int32).contiguous()
+    out = torch.empty((bsz, nrb * bk), dtype=torch.float32, device=dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev) if bad_index is None else bad_index
+    if out.numel():
+        _launch_block_ell_matvec(vf.reshape(bsz * rows, maxb, bk, bk), ci, wf, rp, out.reshape(-1), flag,
+                                 col_blocks=ncb, row_blocks_per_sketch=max(nrb, 1))
+    if bad_index is None and bool(flag):  # reading the flag waits for the launch
+        raise IndexError(f"{name}: column ids out of range [0, {ncb}), or row_ptr out of the ELL rows")
+    return out
+
+
+def block_ell_matvec(
+    vals: torch.Tensor,
+    col_idx: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    row_ptr: torch.Tensor | None = None,
+    bad_index: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Sparse sketch mat-vec ``out[r] = sum_k vals[r, k] @ v[col_idx[r, k]]``:
+    ``(nrb, maxb, Bk, Bk), (nrb, maxb), (ncb * Bk,) -> (nrb * Bk,)`` float32.
+
+    ``row_ptr`` (``(nrb + 1,)``, the port's layout for a row-block whose
+    tiles fill several ELL rows) makes output row-block r the sum over the
+    ELL rows ``row_ptr[r]:row_ptr[r+1]``. Tiles and v of another float
+    dtype are cast to float32 first, int64 ids to int32. CUDA tensors go
+    through the CUDA kernel (``csrc/block_ell.cu``); CPU tensors through
+    `block_ell_matvec_ref`. A column id outside ``[0, ncb)`` (or a bad
+    ``row_ptr``) raises `IndexError`: on CUDA the kernel sets a flag, which
+    the wrapper reads after the launch (a host sync), unless the caller
+    passes its own zeroed ``(1,)`` int32 ``bad_index`` to read when it
+    chooses (the block-ELL solver reads it once per solve).
+    """
+    if vals.ndim != 4 or col_idx.ndim != 2 or v.ndim != 1:
+        raise ValueError(f"block_ell_matvec: shapes must be (nrb, maxb, Bk, Bk), (nrb, maxb), "
+                         f"(ncb * Bk,); got {tuple(vals.shape)}, {tuple(col_idx.shape)}, {tuple(v.shape)}")
+    return _block_ell("block_ell_matvec", vals[None], col_idx[None], v[None], row_ptr, bad_index)[0]
+
+
+def batched_block_ell_matvec(
+    vals: torch.Tensor,
+    col_idx: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    bad_index: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """B independent block-ELL mat-vecs in ONE launch:
+    ``(B, nrb, maxb, Bk, Bk), (B, nrb, maxb), (B, ncb * Bk) -> (B, nrb * Bk)``.
+
+    The batch axis is folded into the row-block axis; the kernel reads the
+    column ids of sketch b against its own part of v (offset ``b * ncb``
+    blocks), so an id out of range of its sketch is caught. Casts, dispatch
+    and errors as `block_ell_matvec`.
+    """
+    if vals.ndim != 5 or col_idx.ndim != 3 or v.ndim != 2:
+        raise ValueError(f"batched_block_ell_matvec: shapes must be (B, nrb, maxb, Bk, Bk), "
+                         f"(B, nrb, maxb), (B, ncb * Bk); got {tuple(vals.shape)}, "
+                         f"{tuple(col_idx.shape)}, {tuple(v.shape)}")
+    return _block_ell("batched_block_ell_matvec", vals, col_idx, v, None, bad_index)

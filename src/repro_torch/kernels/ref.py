@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.core.geometry import wfr_from_dist
 
-__all__ = ["gathered_kernel_ref", "online_lse_ref", "online_matvec_ref"]
+__all__ = ["block_ell_matvec_ref", "gathered_kernel_ref", "online_lse_ref", "online_matvec_ref"]
 
 #: elements of one (rows, m) block of the streaming plain versions
 _BLOCK_ELEMS = 1 << 26
@@ -115,3 +115,19 @@ def online_lse_ref(
             z = torch.where(blocked, -torch.inf, z)
         out[r0:r1] = torch.logsumexp(z, dim=1)
     return torch.where(torch.isneginf(out), -1e30, out)
+
+
+def block_ell_matvec_ref(
+    vals: torch.Tensor, col_idx: torch.Tensor, v: torch.Tensor, row_ptr: torch.Tensor | None = None
+) -> torch.Tensor:
+    """``(ell_rows, maxb, Bk, Bk), (ell_rows, maxb), (ncb, Bk) -> (nrb, Bk)``:
+    ``out[r] = sum_k vals[r, k] @ v[col_idx[r, k]]``, a gather and an einsum
+    in float32 whatever the inputs' dtype (as the kernel computes). With
+    ``row_ptr``, output row-block r is the sum over the ELL rows
+    ``row_ptr[r]:row_ptr[r+1]`` (a sorted segment sum); without it, one ELL
+    row per row-block."""
+    gathered = v.to(torch.float32)[col_idx.long()]  # (ell_rows, maxb, Bk)
+    out = torch.einsum("rkij,rkj->ri", vals.to(torch.float32), gathered)
+    if row_ptr is None:
+        return out
+    return torch.segment_reduce(out, "sum", offsets=row_ptr.long(), axis=0, initial=0.0)

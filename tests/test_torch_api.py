@@ -32,7 +32,8 @@ def test_import_pulls_in_neither_jax_nor_the_reference():
         "import sys\n"
         "import repro_torch, repro_torch.interop, repro_torch.kernels, repro_torch.kernels.ops, "
         "repro_torch.kernels.library, repro_torch.kernels.gather_kernel, "
-        "repro_torch.kernels.fused_sinkhorn, repro_torch.kernels.ref, repro_torch.data.pointclouds\n"
+        "repro_torch.kernels.fused_sinkhorn, repro_torch.kernels.block_ell, repro_torch.kernels.ref, "
+        "repro_torch.core.sparsify, repro_torch.core.spar_sink, repro_torch.data.pointclouds\n"
         "repro_torch.available_methods()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.'))\n"
@@ -79,10 +80,10 @@ def _problem(kind="ot", n=32):
 
 
 def test_registry_lists_methods_and_rejects_bad_calls():
-    assert available_methods() == ["dense", "log", "spar_sink_mf"]
+    assert available_methods() == ["dense", "log", "spar_sink_block_ell", "spar_sink_mf"]
     assert repro_torch.available_methods() == available_methods()
     problem = _problem()
-    with pytest.raises(KeyError, match="available: dense, log, spar_sink_mf"):
+    with pytest.raises(KeyError, match="available: dense, log, spar_sink_block_ell, spar_sink_mf"):
         solve(problem, method="spar_sink_coo")
     for opt in (dict(shared_variates=True), dict(init=(None, None)), dict(key=0)):
         with pytest.raises(TypeError, match="unexpected option"):

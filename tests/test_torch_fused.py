@@ -222,7 +222,8 @@ def test_exports_follow_the_reference():
     import repro_torch.kernels as tk
 
     assert set(tk.__all__) <= set(jk.__all__)
-    assert set(tk.__all__) == {"fused_sinkhorn_solve", "gathered_kernel", "online_lse", "online_matvec"}
+    assert set(tk.__all__) == {"batched_block_ell_matvec", "block_ell_matvec", "fused_sinkhorn_solve",
+                               "gathered_kernel", "online_lse", "online_matvec"}
 
 
 def test_library_signatures_match_the_cuda_sources():
