@@ -41,10 +41,21 @@ failure exits non-zero):
    equal) and UOT, with 2 launches for each iteration the loop executed;
    the mean relative error over 4 seeds against phase 4's ``log`` value; and
    the card's OT sketch solved by the float64 CPU path (the one labelled CPU
-   run).
+   run);
+7. the RecurrentGemma-2B serving slice at full width: ``lru_scan`` (B5)
+   against its plain version at the prefill shape (1, 32768, 2560) and the
+   reference test shapes, two launches bitwise equal; the full-width
+   parameters (3.55e9, float32 masters drawn on the card) with
+   ``rglru_backend="pallas"``; one RG-LRU layer's ``pallas`` and
+   ``chunked`` backends against each other in float32 at (1, 32768, 2560);
+   ``prefill_step`` on 1 x 32768 tokens (the counts set to 0 just before
+   each call and read just after: 18 B5 launches, one per RG-LRU layer);
+   the decode path against ``forward`` in float32 over a 128-token prompt;
+   ``serve`` of 8 requests (32 prompt and 32 generated tokens, bf16), which
+   makes no B5 launch.
 
-``--profile`` also runs (a) under `torch.profiler` and prints where its
-device time goes. The line before the last is a JSON object with one entry per kernel; the
+``--profile`` also runs (a), one prefill and one serving decode step
+under `torch.profiler` and prints where their device time goes. The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout, it exits non-zero before printing any result.
 """
@@ -76,6 +87,13 @@ NEG_INF = -1e30
 # the reference's block-ELL kernel tests (tests/test_kernels_cpu.py): tolerance and shapes
 BLOCK_ELL_TOL = dict(rtol=2e-4, atol=1e-6)
 BLOCK_ELL_SHAPES = [(8, 2, 4), (16, 4, 8), (32, 3, 4)]
+# the reference's LRU scan test (tests/test_kernels.py::test_lru_scan_kernel_sweep):
+# tolerance and shapes; the serving slice's prefill shape (B, S, W) comes first
+LRU_TOL = dict(rtol=1e-5, atol=1e-5)
+LRU_SHAPES = [(1, 32768, 2560), (2, 64, 32), (1, 300, 130), (2, 512, 256)]
+# the decode-matches-forward tolerances of tests/test_models.py
+DECODE_TOL = dict(rtol=2e-2, atol=2e-3)
+PREFILL_LEN = 32768  # the prefill_32k cell's sequence length
 
 
 def check(ok: bool, what: str) -> None:
@@ -910,21 +928,198 @@ def check_block_ell_accuracy(n: int, device, v_log: float, s: float, ot_result, 
     check(math.isfinite(value), "the float64 CPU block-ELL value is not finite")
 
 
+# --------------------------------------------------------------------------
+# Phase 7: the RecurrentGemma-2B serving slice at full width
+# --------------------------------------------------------------------------
+
+
+def check_lru_scan_kernel(device) -> dict:
+    """B5 against its plain version at the prefill shape and the reference
+    test shapes (a in U(0.7, 0.999), b = 0.1 N(0, 1)); two launches bitwise
+    equal; times of the wrapper, the bare launch and the plain version at
+    the prefill shape."""
+    import torch
+
+    from repro_torch.kernels.lru_scan import _launch_lru_scan_fwd
+    from repro_torch.kernels.ops import lru_scan
+    from repro_torch.kernels.ref import lru_scan_ref
+
+    errs = []
+    for shape in LRU_SHAPES:
+        gen = torch.Generator(device=device).manual_seed(sum(shape))
+        a = 0.7 + 0.299 * torch.rand(shape, device=device, generator=gen)
+        b = 0.1 * torch.randn(shape, device=device, generator=gen)
+        out = lru_scan(a, b)
+        again = lru_scan(a, b)
+        ref = lru_scan_ref(a, b)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(out, again)), f"lru_scan {shape}: two launches differ")
+        check(bool(torch.isfinite(out).all()), f"lru_scan {shape}: non-finite output")
+        torch.testing.assert_close(out, ref, **LRU_TOL)
+        errs.append(_max_abs_err(out, ref))
+        log(f"lru_scan {shape}: max_abs_err={errs[-1]!r} (max |h| {float(ref.abs().max())!r}), "
+            f"two launches bitwise equal")
+        if shape == LRU_SHAPES[0]:
+            timed = a, b
+    a, b = timed
+    h = torch.empty_like(a)
+    ms = time_ms(lambda: lru_scan(a, b))
+    bare_ms = time_ms(lambda: _launch_lru_scan_fwd(a, b, h))
+    plain_ms = time_ms(lambda: lru_scan_ref(a, b), warmup=1, reps=5)
+    # least work: a and b read once, h written once; one FMA an element
+    nbytes = 3 * a.numel() * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * a.numel() / FP32_OPS_PER_S * 1e3
+    log(f"lru_scan times at {tuple(a.shape)}: wrapper {ms!r} ms, bare launch {bare_ms!r} ms, "
+        f"plain {plain_ms!r} ms, bound {max(t_bytes, t_ops)!r} ms ({nbytes} bytes; float32 ops {t_ops!r} ms)")
+    del a, b, h, timed
+    return {
+        "name": "lru_scan_fwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lru_scan.cu",
+        "replaces": "src/repro/kernels/lru_scan.py:42",
+        "launches": None,  # filled in from the prefill's run
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        # no one PyTorch call computes this recurrence: a cumprod/cumsum
+        # rewrite divides by a product that underflows over 32768 steps
+        "library_ms": None,
+    }
+
+
+def run_serving_slice(device, profile_run: bool = False) -> int:
+    """Phase 7 after the kernel check: full-width parameters, the backends
+    per layer, prefill (timed; its B5 launches counted), decode against
+    forward in float32, serve. Returns the B5 launches of one prefill."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import prefill_step, serve
+    from repro_torch.models import decode_step, forward, init_decode_state, init_params, param_count
+    from repro_torch.models.rglru import rglru_forward
+
+    cfg = configs.get("recurrentgemma_2b").replace(rglru_backend="pallas")
+    n_rglru = sum(cfg.block_pattern[i % len(cfg.block_pattern)] == "rglru" for i in range(cfg.num_layers))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    torch.cuda.synchronize()
+    count = param_count(params)
+    log(f"serving slice: {cfg.name} full width, {count} parameters ({count * 4} bytes of float32 masters) "
+        f"drawn on the card in {time.perf_counter() - t0!r} s; {n_rglru} RG-LRU layers, backend "
+        f"{cfg.rglru_backend!r}")
+    check(count == 3_549_795_840, f"parameter count {count}")
+
+    # one RG-LRU layer, float32, at the prefill shape: pallas against chunked
+    gen = torch.Generator(device=device).manual_seed(1)
+    x = torch.randn((1, PREFILL_LEN, cfg.d_model), device=device, generator=gen)
+    mix = params["blocks"][0]["mix"]
+    out_p = rglru_forward(mix, x, cfg.replace(dtype="float32"))
+    out_c = rglru_forward(mix, x, cfg.replace(dtype="float32", rglru_backend="chunked"))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out_p, out_c, rtol=1e-4, atol=1e-4)
+    log(f"serving slice: one RG-LRU layer at {tuple(x.shape)} float32, pallas against chunked: "
+        f"max_abs_err={_max_abs_err(out_p, out_c)!r} (max |y| {float(out_c.abs().max())!r})")
+    del x, out_p, out_c
+
+    # prefill: a warm call, then the timed one; counts around each call
+    tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_LEN), device=device, generator=gen)
+    launches = []
+    for run in ("warm", "timed"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = prefill_step(params, tokens, cfg)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        launches.append(counts["lru_scan_fwd"])
+        row = dict(run=run, batch=1, seq=PREFILL_LEN, wall_s=wall_s, tokens_per_s=PREFILL_LEN / wall_s,
+                   peak_device_bytes=torch.cuda.max_memory_allocated(device), launches=counts)
+        log("prefill " + json.dumps(row))
+        check(counts["lru_scan_fwd"] == n_rglru,
+              f"prefill launched lru_scan_fwd {counts['lru_scan_fwd']} times, not {n_rglru}")
+        check(sum(counts.values()) == counts["lru_scan_fwd"], f"prefill launched other kernels: {counts}")
+        check(tuple(logits.shape) == (1, cfg.vocab_size) and logits.dtype == torch.float32,
+              f"prefill logits {tuple(logits.shape)} {logits.dtype}")
+        check(bool(torch.isfinite(logits).all()), "prefill logits are not finite")
+    log(f"prefill: next token {int(torch.argmax(logits))}, logits in "
+        f"[{float(logits.min())!r}, {float(logits.max())!r}]")
+    if profile_run:
+        profile_call("prefill 1 x 32768", lambda: prefill_step(params, tokens, cfg))
+    del tokens, logits
+
+    # decode against forward, float32, over a 128-token prompt
+    cfg32 = cfg.replace(dtype="float32")
+    prompt = torch.randint(0, cfg.vocab_size, (1, 128), device=device, generator=gen)
+    with torch.no_grad():
+        ref, _ = forward(params, prompt, cfg32)
+        state = init_decode_state(cfg32, 1, prompt.shape[1], dtype=torch.float32, device=device)
+        t0 = time.perf_counter()
+        outs = []
+        for i in range(prompt.shape[1]):
+            lg, state = decode_step(params, state, prompt[:, i:i + 1], i, cfg32)
+            outs.append(lg)
+        dec = torch.cat(outs, dim=1)
+        torch.cuda.synchronize()
+    torch.testing.assert_close(dec, ref, **DECODE_TOL)
+    log(f"decode against forward, float32, 128 tokens: max_abs_err={_max_abs_err(dec, ref)!r} "
+        f"(max |logit| {float(ref.abs().max())!r}), {(time.perf_counter() - t0) / prompt.shape[1] * 1e3!r} ms a step")
+    del ref, state, outs, dec, lg
+
+    # serve 8 requests in bf16: decode only, so no B5 launch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    seqs = serve(cfg, batch=8, prompt_len=32, gen=32, seed=0, device=device, params=params)
+    wall_s = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    log("serve " + json.dumps(dict(batch=8, prompt_len=32, gen=32, wall_s=wall_s,
+                                   tokens_per_s=seqs.size / wall_s, ms_per_step=wall_s / 63 * 1e3,
+                                   peak_device_bytes=torch.cuda.max_memory_allocated(device),
+                                   launches=counts)))
+    check(seqs.shape == (8, 64) and bool(((seqs >= 0) & (seqs < cfg.vocab_size)).all()), "served tokens")
+    check(counts["lru_scan_fwd"] == 0, f"decode launched lru_scan_fwd {counts['lru_scan_fwd']} times")
+    if profile_run:
+        # one warm serving decode step (batch 8, bf16, cache of 64 slots)
+        state = init_decode_state(cfg, 8, 64, device=device)
+        step_tokens = torch.as_tensor(seqs[:, :1], device=device)
+        with torch.no_grad():
+            decode_step(params, state, step_tokens, 0, cfg)
+            profile_call("decode step, batch 8", lambda: decode_step(params, state, step_tokens, 1, cfg))
+        del state
+    del params
+    torch.cuda.empty_cache()
+    return launches[-1]
+
+
 def profile_solve(label: str, problem, **opts) -> None:
     """Run one warm ``solve`` under `torch.profiler` and print where its
+    device time goes (`profile_call`)."""
+    import repro_torch as rt
+
+    float(rt.solve(problem, **opts).value)  # warm: kernel caches, the Geometry's K
+    profile_call(label, lambda: float(rt.solve(problem, **opts).value))
+
+
+def profile_call(label: str, fn) -> None:
+    """Run ``fn()`` (warm) once under `torch.profiler` and print where its
     device time goes: the busiest kernels by device time, and the device's
     busy share of the run's wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    import repro_torch as rt
-
-    float(rt.solve(problem, **opts).value)  # warm: kernel caches, the Geometry's K
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        float(rt.solve(problem, **opts).value)
+        fn()
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # kernel events only: an operator's row repeats its kernels' device time
     rows = sorted(
@@ -1007,6 +1202,10 @@ def main() -> int:
     entries[-1]["launches"], s_be, ot_be = run_block_ell_path(8192, device)
     check_block_ell_accuracy(8192, device, v_log, s_be, ot_be)
     log(f"block-ELL phase {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    entries.append(check_lru_scan_kernel(device))
+    entries[-1]["launches"] = run_serving_slice(device, profile_run)
+    log(f"serving slice phase {time.perf_counter() - t0!r} s")
     for entry in entries:
         check(entry["launches"] > 0, f"{entry['name']} was not launched on its path")
     if profile_run:

@@ -1,0 +1,18 @@
+"""Architecture registry. ``repro_torch.configs.get("<arch>")`` / ``"<arch>:smoke"``."""
+from repro_torch.configs.base import (
+    ARCH_IDS,
+    SHAPES,
+    SUBQUADRATIC,
+    ModelConfig,
+    get,
+    shape_of,
+)
+
+__all__ = [
+    "ARCH_IDS",
+    "SHAPES",
+    "SUBQUADRATIC",
+    "ModelConfig",
+    "get",
+    "shape_of",
+]

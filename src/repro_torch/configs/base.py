@@ -1,0 +1,142 @@
+"""Model configs: frozen dataclasses and a registry keyed by ``--arch`` id.
+
+The port's own copy of the reference's ``repro.configs.base`` (pure
+Python, so it is copied, not imported): `ModelConfig` with every field and
+default, `SHAPES`, `ARCH_IDS` and `get`. Each ported architecture has one
+module in this package defining ``CONFIG`` (the published numbers) and
+``SMOKE`` (a reduced config of the same family for CPU tests). Only
+``recurrentgemma_2b`` is ported so far; `get` raises `KeyError` for the
+others. ``TrainConfig`` comes with the training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from dataclasses import dataclass
+from typing import Literal
+
+__all__ = ["ARCH_IDS", "SHAPES", "SUBQUADRATIC", "ModelConfig", "get", "shape_of"]
+
+ARCH_IDS = (
+    "olmoe_1b_7b",
+    "llama4_scout_17b_a16e",
+    "qwen3_14b",
+    "stablelm_3b",
+    "starcoder2_7b",
+    "gemma3_12b",
+    "mamba2_130m",
+    "llama32_vision_11b",
+    "whisper_large_v3",
+    "recurrentgemma_2b",
+)
+
+# the architectures whose config module the port has (ROADMAP A-11)
+_PORTED = ("recurrentgemma_2b",)
+
+# input shapes assigned to the LM family (seq_len, global_batch, kind)
+SHAPES: dict[str, tuple[int, int, str]] = {
+    "train_4k": (4_096, 256, "train"),
+    "prefill_32k": (32_768, 32, "prefill"),
+    "decode_32k": (32_768, 128, "decode"),
+    "long_500k": (524_288, 1, "decode"),
+}
+
+# archs with sub-quadratic sequence mixing: the only ones that run long_500k
+SUBQUADRATIC = ("mamba2_130m", "recurrentgemma_2b")
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: Literal["dense", "moe", "ssm", "vlm", "audio", "hybrid"]
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 => d_model // num_heads
+
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    router: Literal["softmax", "sinkhorn", "spar_sink"] = "softmax"
+    router_eps: float = 0.05  # entropic regularizer of the routing OT problem
+    router_iters: int = 8  # fixed Sinkhorn iterations (differentiable)
+    router_sample_frac: float = 0.25  # Spar-Sink sketch budget: s = frac * N * E
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+
+    # --- attention pattern ---
+    sliding_window: int = 0  # 0 = full attention
+    global_period: int = 0  # gemma3: 6 => every 6th layer global, rest local
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    logit_softcap: float = 0.0
+    tie_embeddings: bool = False
+    attn_chunk: int = 1024  # query-chunk size for O(S) memory attention
+
+    # --- ssm (mamba2) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 64
+    ssm_conv: int = 4
+
+    # --- hybrid (recurrentgemma): block kinds cycled over layers ---
+    block_pattern: tuple[str, ...] = ()  # e.g. ("rglru", "rglru", "attn")
+    rnn_width: int = 0  # RG-LRU width (0 => d_model)
+    rglru_backend: Literal["assoc", "chunked", "pallas"] = "chunked"
+    rglru_chunk: int = 256  # chunk length for the chunked backend
+
+    # --- vlm ---
+    cross_attn_period: int = 0  # every k-th layer is followed by cross-attn
+    num_image_tokens: int = 0
+
+    # --- audio (enc-dec) ---
+    encoder_layers: int = 0
+    num_frames: int = 0
+
+    # --- numerics / training ---
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    remat: Literal["none", "full", "dots"] = "full"
+    scan_layers: bool = True
+    cast_params_once: bool = True
+    decode_cross_cache: bool = True
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // max(self.num_heads, 1))
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def get(name: str) -> ModelConfig:
+    """Resolve ``<arch>`` or ``<arch>:smoke`` to a ModelConfig."""
+    smoke = name.endswith(":smoke")
+    arch = name[: -len(":smoke")] if smoke else name
+    arch = arch.replace("-", "_")
+    if arch not in ARCH_IDS:
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
+    if arch not in _PORTED:
+        raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP A-11); ported: {_PORTED}")
+    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    return mod.SMOKE if smoke else mod.CONFIG
+
+
+def shape_of(shape_name: str) -> tuple[int, int, str]:
+    return SHAPES[shape_name]

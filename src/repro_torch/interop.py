@@ -1,9 +1,9 @@
 """Build the port's objects from numpy arrays.
 
-This system runs no model: what carries over from the JAX package is
-problem data and sketches. A caller (the parity tests, for one) exports
-those as numpy arrays and rebuilds them here, so both packages can run the
-same problem on the same sketch.
+What carries over from the JAX package is problem data, sketches and LM
+parameters. A caller (the parity tests, for one) exports those as numpy
+arrays and rebuilds them here, so both packages can run the same problem
+on the same sketch, or the same model on the same weights.
 """
 from __future__ import annotations
 
@@ -20,8 +20,10 @@ from repro_torch.core.sparsify import (
     SparseKernelCOO,
     _with_float32,
 )
+from repro_torch.models.layers import torch_dtype
+from repro_torch.models.lm import init_params
 
-__all__ = ["block_ell_sketch_from_numpy", "problem_from_numpy", "sketch_from_numpy"]
+__all__ = ["block_ell_sketch_from_numpy", "lm_params_from_numpy", "problem_from_numpy", "sketch_from_numpy"]
 
 
 def problem_from_numpy(
@@ -135,3 +137,33 @@ def block_ell_sketch_from_numpy(
         ))
 
     return layout(vals, col_idx, nblocks, n, m, layout(vals_t, col_idx_t, nblocks_t, m, n))
+
+
+def lm_params_from_numpy(tree, cfg, device=None):
+    """The port's LM parameters from the reference's parameter pytree with
+    numpy leaves (``jax.tree.map(np.asarray, params)``): the ``blocks``
+    list of RG-LRU and attention dicts, ``embed``, ``unembed`` and
+    ``final_norm``, each leaf as a ``cfg.param_dtype`` tensor on ``device``
+    (``None`` means ``"cuda"``). Every key and shape is checked against
+    the port's own layout for ``cfg``; a missing or extra key, a wrong
+    block count or a wrong shape raises `ValueError`."""
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.param_dtype)
+
+    def convert(expected, given, path):
+        if isinstance(expected, torch.Tensor):
+            arr = np.asarray(given)
+            if tuple(arr.shape) != tuple(expected.shape):
+                raise ValueError(f"{path}: shape {tuple(arr.shape)}, expected {tuple(expected.shape)}")
+            return torch.tensor(arr, dtype=dtype, device=dev)
+        if isinstance(expected, dict):
+            if not isinstance(given, dict) or set(given) != set(expected):
+                got = sorted(given) if isinstance(given, dict) else type(given).__name__
+                raise ValueError(f"{path}: keys {got}, expected {sorted(expected)}")
+            return {k: convert(expected[k], given[k], f"{path}/{k}") for k in expected}
+        if not isinstance(given, (list, tuple)) or len(given) != len(expected):
+            got = len(given) if isinstance(given, (list, tuple)) else type(given).__name__
+            raise ValueError(f"{path}: {got} entries, expected a list of {len(expected)}")
+        return [convert(e, g, f"{path}[{i}]") for i, (e, g) in enumerate(zip(expected, given))]
+
+    return convert(init_params(cfg, device="meta"), tree, "params")

@@ -48,6 +48,8 @@ SIGNATURES = {
     # vals, col_idx, v, row_ptr, row_blocks, ell_rows, max_blocks, bk, col_blocks,
     # row_blocks_per_sketch, out, bad_index, stream
     "block_ell_matvec": (_P, _P, _P, _P, _I64, _I64, _I64, _INT, _I64, _I64, _P, _P, _P),
+    # a, b, h, batch, seq, width, stream
+    "lru_scan_fwd": (_P, _P, _P, _I64, _I64, _I64, _P),
 }
 
 #: kernel name -> number of launches since the last `reset_launch_counts`

@@ -6,8 +6,9 @@ it runs the kernel's plain version (`repro_torch.kernels.ref`); nothing else
 selects the plain version, and a failed build or launch raises.
 
 The reference's TPU tiling arguments (``block_n``, ``block_m``, ``block_s``)
-and ``interpret`` are not carried over: the CUDA kernels size their own
-tiles, and the CPU runs the plain versions.
+and ``interpret`` are not carried over, nor is its padding of the inputs to
+whole tiles: the CUDA kernels size their own tiles and mask their edges,
+and the CPU runs the plain versions.
 """
 from __future__ import annotations
 
@@ -18,9 +19,11 @@ from repro_torch.kernels.block_ell import _launch_block_ell_matvec
 from repro_torch.kernels.fused_sinkhorn import _launch_online_lse, _launch_online_matvec
 from repro_torch.kernels.gather_kernel import _launch_gathered_kernel
 from repro_torch.kernels.library import COSTS, LAUNCHES, reset_launch_counts
+from repro_torch.kernels.lru_scan import _launch_lru_scan_fwd
 from repro_torch.kernels.ref import (
     block_ell_matvec_ref,
     gathered_kernel_ref,
+    lru_scan_ref,
     online_lse_ref,
     online_matvec_ref,
 )
@@ -31,6 +34,7 @@ __all__ = [
     "block_ell_matvec",
     "fused_sinkhorn_solve",
     "gathered_kernel",
+    "lru_scan",
     "online_lse",
     "online_matvec",
     "reset_launch_counts",
@@ -300,3 +304,31 @@ def batched_block_ell_matvec(
                          f"(B, nrb, maxb), (B, ncb * Bk); got {tuple(vals.shape)}, "
                          f"{tuple(col_idx.shape)}, {tuple(v.shape)}")
     return _block_ell("batched_block_ell_matvec", vals, col_idx, v, None, bad_index)
+
+
+def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The linear recurrence ``h_t = a_t h_{t-1} + b_t`` along S, with
+    ``h_{-1} = 0``: ``(B, S, W), (B, S, W) -> (B, S, W)`` float32.
+
+    Takes contiguous float32 tensors on one device. CUDA tensors go through
+    the CUDA kernel (``csrc/lru_scan.cu``); CPU tensors through
+    `lru_scan_ref`. Forward only: the reference's custom VJP (whose
+    backward is the reverse scan, kernel B6) comes with the training slice,
+    so an input that requires grad is refused rather than given a wrong
+    gradient.
+    """
+    if a.ndim != 3 or a.shape != b.shape:
+        raise ValueError(f"lru_scan: a and b must be (B, S, W) of one shape; got {tuple(a.shape)}, {tuple(b.shape)}")
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"lru_scan: a and b must be float32; got {a.dtype}, {b.dtype}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("lru_scan: a and b must be contiguous")
+    if a.requires_grad or b.requires_grad:
+        raise NotImplementedError("lru_scan is forward only: its backward (kernel B6) is not ported yet")
+    dev = _one_device("lru_scan", a, b)
+    if dev.type == "cpu":
+        return lru_scan_ref(a, b)
+    h = torch.empty_like(a)
+    if h.numel():
+        _launch_lru_scan_fwd(a, b, h)
+    return h

@@ -11,7 +11,14 @@ import torch
 
 from repro_torch.core.geometry import wfr_from_dist
 
-__all__ = ["block_ell_matvec_ref", "gathered_kernel_ref", "online_lse_ref", "online_matvec_ref"]
+__all__ = [
+    "block_ell_matvec_ref",
+    "gathered_kernel_ref",
+    "linear_scan",
+    "lru_scan_ref",
+    "online_lse_ref",
+    "online_matvec_ref",
+]
 
 #: elements of one (rows, m) block of the streaming plain versions
 _BLOCK_ELEMS = 1 << 26
@@ -131,3 +138,36 @@ def block_ell_matvec_ref(
     if row_ptr is None:
         return out
     return torch.segment_reduce(out, "sum", offsets=row_ptr.long(), axis=0, initial=0.0)
+
+
+def _combine(e1, e2):
+    """The associative operator of the recurrence h_t = a_t h_{t-1} + b_t:
+    (a1, h1) then (a2, h2) is (a1 a2, h1 a2 + h2)."""
+    a1, h1 = e1
+    a2, h2 = e2
+    return a1 * a2, h1 * a2 + h2
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan of ``(a, b)`` under `_combine` along ``dim``: returns
+    ``(prod_{s<=t} a_s, h_t)``. A log-depth doubling scan (ceil(log2 S)
+    passes, each combining every element with the one ``2^k`` before it),
+    the counterpart of ``jax.lax.associative_scan`` with the same operator;
+    the two sum in different orders."""
+    n = a.shape[dim]
+    h = b
+    d = 1
+    while d < n:
+        a_hi, h_hi = _combine((a.narrow(dim, 0, n - d), h.narrow(dim, 0, n - d)),
+                              (a.narrow(dim, d, n - d), h.narrow(dim, d, n - d)))
+        a = torch.cat([a.narrow(dim, 0, d), a_hi], dim)
+        h = torch.cat([h.narrow(dim, 0, d), h_hi], dim)
+        d *= 2
+    return a, h
+
+
+def lru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``h_t = a_t h_{t-1} + b_t`` over (B, S, W) with ``h_{-1} = 0``, in
+    float32: the doubling `linear_scan` along S (seconds at S = 32768 on
+    the card, where a Python loop over S would take minutes)."""
+    return linear_scan(a.to(torch.float32), b.to(torch.float32), 1)[1]

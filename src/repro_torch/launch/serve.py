@@ -1,0 +1,84 @@
+"""Serving entry points: the prefill step, and batched greedy decode with a KV cache.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma_2b:smoke \\
+        --batch 4 --prompt-len 16 --gen 32 --device cpu
+
+The counterpart of the reference's ``repro.launch.serve`` (the decode
+loop) and of the prefill step of ``repro.launch.specs`` (next-token logits
+of the last position of a whole prompt, the ``prefill_32k`` cell's step).
+As in the reference, `serve` feeds the prompt token by token through
+``decode_step`` and then decodes greedily. Runs on the card unless
+``device`` names the CPU; with no card, ``device=None`` raises.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import decode_step, forward, init_decode_state, init_params
+
+__all__ = ["prefill_step", "serve"]
+
+
+def prefill_step(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Serving semantics of a prompt: next-token logits for the last
+    position only, (B, S) -> (B, V) float32."""
+    logits, _ = forward(params, tokens, cfg, last_only=True)
+    return logits[:, -1, :]
+
+
+@torch.no_grad()
+def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int, seed: int = 0, device=None,
+          params=None) -> np.ndarray:
+    """Greedy decode of ``batch`` random prompts of ``prompt_len`` tokens,
+    ``gen`` tokens each; returns the (batch, prompt_len + gen) tokens.
+
+    Parameters are drawn from ``seed`` on ``device`` unless given. The
+    prompt tokens come from a CPU `torch.Generator` seeded with ``seed``,
+    so a seed gives the same prompts on every device. Prints the decoded
+    count and tok/s, then ``sample:`` and the first sequence's first 32
+    tokens, as the reference does.
+    """
+    dev = resolve_device(device)
+    if params is None:
+        params = init_params(cfg, seed, device=dev)
+    total = prompt_len + gen
+    state = init_decode_state(cfg, batch, total, device=dev)
+    prompt_gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, 1), generator=prompt_gen).to(dev)
+    out = [tokens.cpu().numpy()]
+    t0 = time.time()
+    for i in range(total - 1):
+        logits, state = decode_step(params, state, tokens, i, cfg)
+        if i >= prompt_len - 1:
+            tokens = torch.argmax(logits[:, -1:], dim=-1)
+        else:
+            tokens = torch.randint(0, cfg.vocab_size, (batch, 1), generator=prompt_gen).to(dev)
+        out.append(tokens.cpu().numpy())  # waits for the step
+    dt = time.time() - t0
+    seqs = np.concatenate(out, axis=1)
+    print(f"decoded {batch}x{total} tokens in {dt:.2f}s ({batch * total / dt:,.0f} tok/s)")
+    print("sample:", seqs[0, : min(32, total)].tolist())
+    return seqs
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    args = ap.parse_args()
+    cfg = configs.get(args.arch)
+    serve(cfg, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

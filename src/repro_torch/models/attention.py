@@ -1,0 +1,173 @@
+"""Attention: grouped-query attention with RoPE / qk-norm, query-chunked
+softmax, sliding-window masks, and KV-cache decode with ring buffers for
+windowed layers.
+
+The counterpart of the reference's ``repro.models.attention`` without
+cross-attention and the bidirectional (encoder) mask, which come with the
+VLM and audio families, and without the sharding constraints (no-ops on
+one card). The query-chunked formulation
+(a loop over query tiles against the full K/V) keeps the score memory at
+(B, Hkv, rep, chunk, S) instead of (B, H, S, S). Scores are computed for
+the whole chunk x S and then masked, as in the reference: at S = 32768
+that is O(S^2) products, left to ``torch.matmul`` as the reference leaves
+them to XLA.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import dense, dense_init, rms_norm, rms_norm_init, rope
+
+__all__ = ["init_attention", "attention", "KVCache", "init_kv_cache", "attention_decode"]
+
+_NEG = -1e30
+
+
+def init_attention(gen, cfg: ModelConfig, device, dtype=torch.float32):
+    p = {
+        "wq": dense_init(gen, cfg.d_model, cfg.q_dim, device, dtype),
+        "wk": dense_init(gen, cfg.d_model, cfg.kv_dim, device, dtype),
+        "wv": dense_init(gen, cfg.d_model, cfg.kv_dim, device, dtype),
+        "wo": dense_init(gen, cfg.q_dim, cfg.d_model, device, dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rms_norm_init(cfg.head_dim, device, dtype)
+        p["k_norm"] = rms_norm_init(cfg.head_dim, device, dtype)
+    return p
+
+
+def _split_heads(x, n_heads, head_dim):
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_heads, head_dim)
+
+
+def _gqa_attend(q, k, v, mask, scale, grouped_out: bool = False):
+    """Grouped-query attention without repeating K/V.
+
+    q (B,C,H,hd), k/v (B,S,Hkv,hd), mask (B,C,S) -> (B,C,H,hd), or
+    (B,C,Hkv,rep,hd) with ``grouped_out``. Scores in float32, masked
+    entries at -1e30, softmax weights cast to ``v.dtype``.
+    """
+    b, c, h, d = q.shape
+    hkv = k.shape[2]
+    rep = h // hkv
+    qg = q.reshape(b, c, hkv, rep, d)
+    scores = torch.einsum("bcgrd,bsgd->bgrcs", qg, k).to(torch.float32) * scale
+    scores = torch.where(mask[:, None, None, :, :], scores, _NEG)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bgrcs,bsgd->bcgrd", w, v)
+    if grouped_out:
+        return out
+    return out.reshape(b, c, h, d)
+
+
+def _project_qkv(params, x, cfg: ModelConfig, positions, dtype):
+    q = _split_heads(dense(params["wq"], x, dtype), cfg.num_heads, cfg.head_dim)
+    k = _split_heads(dense(params["wk"], x, dtype), cfg.num_kv_heads, cfg.head_dim)
+    v = _split_heads(dense(params["wv"], x, dtype), cfg.num_kv_heads, cfg.head_dim)
+    if "q_norm" in params:
+        q = rms_norm(params["q_norm"], q)
+        k = rms_norm(params["k_norm"], k)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attention(
+    params,
+    x: torch.Tensor,  # (B, S, D)
+    positions: torch.Tensor,  # (S,)
+    cfg: ModelConfig,
+    window: int,  # <= 0 means full causal
+) -> torch.Tensor:
+    """Causal (optionally sliding-window) self-attention, query-chunked."""
+    dtype = x.dtype
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, positions[None, :], dtype)
+    scale = cfg.head_dim**-0.5
+
+    chunk = min(cfg.attn_chunk, s)
+    if s % chunk != 0:
+        chunk = s  # fallback: single chunk (smoke-size sequences)
+    outs = []
+    for c0 in range(0, s, chunk):
+        pos_i = positions[c0 : c0 + chunk]
+        rel = pos_i[:, None] - positions[None, :]
+        visible = rel >= 0
+        in_window = torch.abs(rel) < window if window > 0 else torch.ones_like(visible)
+        mask = (visible & in_window)[None].expand(b, chunk, s)
+        outs.append(_gqa_attend(q[:, c0 : c0 + chunk], k, v, mask, scale))
+    out = torch.cat(outs, dim=1).reshape(b, s, cfg.q_dim)
+    return dense(params["wo"], out, dtype)
+
+
+# --------------------------------------------------------------------------
+# Decode path
+# --------------------------------------------------------------------------
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, S_cache, Hkv, hd)
+    v: torch.Tensor  # (B, S_cache, Hkv, hd)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, seq: int, window, dtype=torch.bfloat16, device=None):
+    """A zero cache of ``min(seq, window)`` slots (``seq`` for no window);
+    ``device=None`` means the card."""
+    s_cache = min(seq, window) if (window and window > 0) else seq
+    shape = (batch, s_cache, cfg.num_kv_heads, cfg.head_dim)
+    dev = resolve_device(device)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=dev), torch.zeros(shape, dtype=dtype, device=dev))
+
+
+def attention_decode(
+    params,
+    x: torch.Tensor,  # (B, 1, D) the new token's activations
+    cache: KVCache,
+    pos: int,  # absolute position of the new token
+    cfg: ModelConfig,
+    window: int = 0,  # mask width (0 = full causal)
+    ring: bool = False,  # True => cache is a ring buffer of size < pos range
+) -> tuple[torch.Tensor, KVCache]:
+    """One-token causal attention against a KV cache.
+
+    Two cache disciplines:
+    * ``ring=False``: cache length covers positions [0, s_cache); the new
+      token is written at slot ``min(pos, s_cache - 1)`` and masked by
+      ``window`` if set.
+    * ``ring=True``: cache is a circular buffer (sliding-window layers at
+      long context); slot ``pos % s_cache``, everything resident is visible.
+
+    Unlike the reference, which returns a new cache, the new token's K/V
+    are written into ``cache`` in place (no copy of the cache a step); the
+    returned cache is the same tensors.
+    """
+    pos = int(pos)
+    dtype = x.dtype
+    b = x.shape[0]
+    positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
+    q, k_new, v_new = _project_qkv(params, x, cfg, positions, dtype)
+    s_cache = cache.k.shape[1]
+    slot = (pos % s_cache) if ring else min(pos, s_cache - 1)
+    cache.k[:, slot : slot + 1] = k_new.to(cache.k.dtype)
+    cache.v[:, slot : slot + 1] = v_new.to(cache.v.dtype)
+    kf, vf = cache.k.to(dtype), cache.v.to(dtype)
+    idx = torch.arange(s_cache, device=x.device)
+    if ring:
+        age = (slot - idx) % s_cache  # 0 = newest entry
+        valid = age <= min(pos, s_cache - 1)
+    else:
+        valid = idx <= pos
+        if window > 0:
+            valid = valid & (pos - idx < window)
+    mask = valid[None, None, :].expand(b, 1, s_cache)
+    out = _gqa_attend(q, kf, vf, mask, cfg.head_dim**-0.5, grouped_out=True)
+    # grouped output projection: contract (g, r, hd) against wo directly
+    rep = cfg.num_heads // cfg.num_kv_heads
+    wo3 = params["wo"]["w"].to(dtype).reshape(cfg.num_kv_heads, rep, cfg.head_dim, cfg.d_model)
+    y = torch.einsum("bcgrd,grdm->bcm", out, wo3)
+    return y, cache
