@@ -52,10 +52,24 @@ failure exits non-zero):
    each call and read just after: 18 B5 launches, one per RG-LRU layer);
    the decode path against ``forward`` in float32 over a 128-token prompt;
    ``serve`` of 8 requests (32 prompt and 32 generated tokens, bf16), which
-   makes no B5 launch.
+   makes no B5 launch;
+8. the RecurrentGemma-2B training slice at full width and full depth, after
+   phase 7's model is freed: the LRU scan's backward (B6) against its plain
+   version at the training shape (1, TRAIN_SEQ, 2560), the prefill shape
+   and the reference test shapes, two launches bitwise equal; one RG-LRU
+   layer's gradients (every parameter and the input, float32) by ``pallas``
+   (B5 + B6) against ``chunked``; three AdamW steps of ``make_train_step``
+   on 1 x TRAIN_SEQ tokens from ``TokenPipeline`` (bf16 compute, float32
+   masters drawn on the card, lr 3e-4), the counts set to 0 just before
+   each step and read just after (exactly 18 B5 and 18 B6 launches, one of
+   each per RG-LRU layer), finite loss and gradient norm, lr = 0 and no
+   parameter moved at step 0, every parameter moved at step 1; then one
+   step's loss and gradients computed twice from the same state, which must
+   be bitwise equal or are named leaf by leaf.
 
-``--profile`` also runs (a), one prefill and one serving decode step
-under `torch.profiler` and prints where their device time goes. The line before the last is a JSON object with one entry per kernel; the
+``--profile`` also runs (a), one prefill, one serving decode step and one
+train step under `torch.profiler` and prints where their device time goes.
+The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout, it exits non-zero before printing any result.
 """
@@ -94,6 +108,16 @@ LRU_SHAPES = [(1, 32768, 2560), (2, 64, 32), (1, 300, 130), (2, 512, 256)]
 # the decode-matches-forward tolerances of tests/test_models.py
 DECODE_TOL = dict(rtol=2e-2, atol=2e-3)
 PREFILL_LEN = 32768  # the prefill_32k cell's sequence length
+# the training slice's sequence length at global batch 1 (train_4k's 256 x
+# 4096 does not fit one card beside the 42.6 GB of params and moments)
+TRAIN_SEQ = 2048
+# the reference LRU scan test's gradient tolerance (tests/test_kernels.py:120-121)
+LRU_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+# B6's shapes: the training step's, the prefill's (comparable with B5), the reference test's
+LRU_BWD_SHAPES = [(1, TRAIN_SEQ, 2560), (1, PREFILL_LEN, 2560), (2, 64, 32), (1, 300, 130), (2, 512, 256)]
+# one RG-LRU layer's float32 gradients, pallas against chunked: the largest
+# difference over the largest entry of each gradient
+LAYER_GRAD_RTOL = 1e-3
 
 
 def check(ok: bool, what: str) -> None:
@@ -1098,6 +1122,219 @@ def run_serving_slice(device, profile_run: bool = False) -> int:
     return launches[-1]
 
 
+# --------------------------------------------------------------------------
+# Phase 8: the RecurrentGemma-2B training slice at full width
+# --------------------------------------------------------------------------
+
+
+def check_lru_scan_bwd_kernel(device) -> dict:
+    """B6 against its plain version at the training shape, the prefill
+    shape and the reference test shapes (a, b as phase 7 draws them, the
+    cotangent g from N(0, 1), h from B5): the gradients through the
+    autograd path (B5 forward, B6 backward) against `lru_scan_bwd_ref` on
+    the same h; two launches bitwise equal; at every shape the times of the
+    wrapper (``torch.autograd.grad`` through `ops.lru_scan`, as the train
+    step reaches it: allocation and launch), the bare launch and the plain
+    version, and the bytes bound (a, h and g read once, da and db written
+    once). Returns the entry at the training shape."""
+    import torch
+
+    from repro_torch.kernels.lru_scan import _launch_lru_scan_bwd, _launch_lru_scan_fwd
+    from repro_torch.kernels.ops import lru_scan
+    from repro_torch.kernels.ref import lru_scan_bwd_ref
+
+    errs = []
+    rows = {}
+    for shape in LRU_BWD_SHAPES:
+        gen = torch.Generator(device=device).manual_seed(sum(shape) + 1)
+        a = (0.7 + 0.299 * torch.rand(shape, device=device, generator=gen)).requires_grad_()
+        b = (0.1 * torch.randn(shape, device=device, generator=gen)).requires_grad_()
+        g = torch.randn(shape, device=device, generator=gen)
+        h = lru_scan(a, b)
+        da, db = torch.autograd.grad(h, (a, b), g, retain_graph=True)
+        da2, db2 = torch.autograd.grad(h, (a, b), g, retain_graph=True)
+        da_r, db_r = lru_scan_bwd_ref(a.detach(), h.detach(), g)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(da, da2)) and bool(torch.equal(db, db2)), f"lru_scan_bwd {shape}: two launches differ")
+        check(bool(torch.isfinite(da).all()) and bool(torch.isfinite(db).all()), f"lru_scan_bwd {shape}: non-finite")
+        torch.testing.assert_close(db, db_r, **LRU_GRAD_TOL)
+        torch.testing.assert_close(da, da_r, **LRU_GRAD_TOL)
+        err = max(_max_abs_err(da, da_r), _max_abs_err(db, db_r))
+        errs.append(err)
+        ad, hd = a.detach(), h.detach()
+        bufs = torch.empty_like(ad), torch.empty_like(ad)
+        small = shape[1] * shape[2] < (1 << 20)
+        ms = time_ms(lambda: torch.autograd.grad(h, (a, b), g, retain_graph=True))
+        bare_ms = time_ms(lambda: _launch_lru_scan_bwd(ad, hd, g, *bufs))
+        plain_ms = time_ms(lambda: lru_scan_bwd_ref(ad, hd, g), warmup=1, reps=20 if small else 5)
+        fwd_ms = time_ms(lambda: _launch_lru_scan_fwd(ad, b.detach(), bufs[0]))  # B5 at this shape, for its row
+        nbytes = 5 * ad.numel() * 4
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 3 * ad.numel() / FP32_OPS_PER_S * 1e3
+        rows[shape] = dict(ms=ms, bare_ms=bare_ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log(f"lru_scan_bwd {shape}: max_abs_err={err!r} (max |da| {float(da_r.abs().max())!r}, max |db| "
+            f"{float(db_r.abs().max())!r}), two launches bitwise equal; wrapper {ms!r} ms, bare launch "
+            f"{bare_ms!r} ms, plain {plain_ms!r} ms, bound {max(t_bytes, t_ops)!r} ms ({nbytes} bytes; "
+            f"float32 ops {t_ops!r} ms); B5's bare launch at this shape {fwd_ms!r} ms")
+        del a, b, g, h, da, db, da2, db2, da_r, db_r, ad, hd, bufs
+    torch.cuda.empty_cache()
+    main = rows[LRU_BWD_SHAPES[0]]
+    return {
+        "name": "lru_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lru_scan.cu",
+        "replaces": "src/repro/kernels/lru_scan.py:80",
+        "launches": None,  # filled in from the training steps
+        "max_abs_err": max(errs),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        # as for B5: no one PyTorch call computes the reverse recurrence
+        "library_ms": None,
+    }
+
+
+def check_layer_gradients(cfg, device) -> None:
+    """One RG-LRU layer at (1, TRAIN_SEQ, d_model) in float32: the gradients
+    of every parameter and of the input through ``pallas`` (B5 forward, B6
+    backward: one launch each) against ``chunked`` (autograd through the
+    doubling scans: no launch)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.rglru import init_rglru, rglru_forward
+    from repro_torch.tree import leaves_with_paths, unflatten
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    mix = init_rglru(gen, cfg, device)
+    x = torch.randn((1, TRAIN_SEQ, cfg.d_model), device=device, generator=gen)
+    cot = torch.randn(x.shape, device=device, generator=gen)
+    names = ["input"] + ["/".join(map(str, path)) for path, _ in leaves_with_paths(mix)]
+    grads = {}
+    for backend, launches in (("pallas", 1), ("chunked", 0)):
+        work = [t.detach().clone().requires_grad_() for _, t in leaves_with_paths(mix)]
+        xg = x.clone().requires_grad_()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out = rglru_forward(unflatten(mix, work), xg, cfg.replace(dtype="float32", rglru_backend=backend))
+        torch.sum(out * cot).backward()
+        torch.cuda.synchronize()
+        counts = dict(ops.LAUNCHES)
+        check(counts["lru_scan_fwd"] == launches and counts["lru_scan_bwd"] == launches,
+              f"one RG-LRU layer, {backend}: launches {counts}")
+        grads[backend] = [xg.grad] + [w.grad for w in work]
+    worst = 0.0
+    for name, gp, gc in zip(names, grads["pallas"], grads["chunked"]):
+        rel = _max_abs_err(gp, gc) / max(float(gc.abs().max()), 1e-30)
+        worst = max(worst, rel)
+        check(rel <= LAYER_GRAD_RTOL, f"one RG-LRU layer's gradient of {name}: pallas against chunked "
+                                      f"differs by {rel!r} of its largest entry")
+    log(f"training slice: one RG-LRU layer at {tuple(x.shape)} float32, gradients of the input and "
+        f"{len(names) - 1} parameters, pallas (B5 + B6) against chunked: largest difference {worst!r} of the "
+        f"gradient's largest entry (held at {LAYER_GRAD_RTOL})")
+
+
+def run_training_slice(device, profile_run: bool = False) -> int:
+    """Phase 8 after the kernel check: one layer's gradients, then three
+    full-width train steps (counts around each) and the determinism check.
+    Returns the B6 launches of the three steps."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.optim import global_norm
+    from repro_torch.train import init_train_state, loss_and_grads, make_train_step
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    cfg = configs.get("recurrentgemma_2b").replace(rglru_backend="pallas")
+    n_rglru = sum(cfg.block_pattern[i % len(cfg.block_pattern)] == "rglru" for i in range(cfg.num_layers))
+    check_layer_gradients(cfg, device)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    tcfg = TrainConfig(seq_len=TRAIN_SEQ, global_batch=1, lr=3e-4)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tcfg, torch.Generator(device=device).manual_seed(0), device=device)
+    torch.cuda.synchronize()
+    state_bytes = sum(t.numel() * t.element_size() for tree in (state.params, state.opt.m, state.opt.v)
+                      for t in leaves(tree))
+    log(f"training slice: {cfg.name} full width and depth, params + AdamW moments {state_bytes} bytes "
+        f"(float32) drawn on the card in {time.perf_counter() - t0!r} s; {n_rglru} RG-LRU layers, backend "
+        f"{cfg.rglru_backend!r}, compute {cfg.dtype}, batch 1 x {TRAIN_SEQ}, lr {tcfg.lr} "
+        f"(warmup {tcfg.warmup_steps} steps)")
+    step_fn = make_train_step(cfg, tcfg)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, 1, seed=tcfg.seed)
+    watched = [("/".join(map(str, path)), leaf, leaf.reshape(-1)[:4096].clone())
+               for path, leaf in leaves_with_paths(state.params)]
+    total_bwd = 0
+    rows = []
+    for i in range(3):
+        batch = {"tokens": torch.as_tensor(pipe.batch(i), dtype=torch.int64, device=device)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        total_bwd += counts["lru_scan_bwd"]
+        m = {k: float(v) for k, v in metrics.items()}
+        row = dict(step=i, batch=1, seq=TRAIN_SEQ, wall_s=wall_s, tokens_per_s=TRAIN_SEQ / wall_s,
+                   peak_device_bytes=torch.cuda.max_memory_allocated(device), launches=counts, **m)
+        rows.append(row)
+        log("train step " + json.dumps(row))
+        check(counts["lru_scan_fwd"] == n_rglru and counts["lru_scan_bwd"] == n_rglru,
+              f"train step {i}: launches {counts}, not {n_rglru} lru_scan_fwd and {n_rglru} lru_scan_bwd")
+        check(sum(counts.values()) == 2 * n_rglru, f"train step {i} launched other kernels: {counts}")
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]), f"train step {i}: non-finite {m}")
+        moved = [name for name, leaf, before in watched if not torch.equal(leaf.reshape(-1)[:4096], before)]
+        if i == 0:
+            check(m["lr"] == 0.0 and not moved, f"step 0 (lr {m['lr']}) moved {moved[:5]}")
+        elif i == 1:
+            check(m["lr"] > 0.0 and len(moved) == len(watched),
+                  f"step 1 (lr {m['lr']}) left {len(watched) - len(moved)} parameters unmoved")
+            log(f"training slice: step 1 (lr {m['lr']!r}) moved all {len(watched)} parameters")
+        for _, leaf, before in watched:
+            before.copy_(leaf.reshape(-1)[:4096])
+    warm = rows[-1]
+    log(f"training slice: warm step {warm['wall_s']!r} s, {warm['tokens_per_s']!r} tokens/s, peak device "
+        f"memory {max(r['peak_device_bytes'] for r in rows)} bytes over the three steps")
+    del watched
+
+    # determinism: one step's loss and gradients twice from the same state
+    batch = {"tokens": torch.as_tensor(pipe.batch(3), dtype=torch.int64, device=device)}
+    names = ["/".join(map(str, path)) for path, _ in leaves_with_paths(state.params)]
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, metrics = loss_and_grads(state.params, batch, cfg, tcfg.z_loss)
+        torch.cuda.synchronize()
+        fwd_bwd_s = time.perf_counter() - t0
+        sums = torch.stack([torch.stack([torch.sum(g.float()), torch.sum(torch.square(g.float()))]) for g in grads])
+        runs.append((metrics["loss"], global_norm(grads), sums))
+        del grads, metrics
+    log(f"training slice: forward and backward alone (loss_and_grads, the step without clipping and "
+        f"AdamW) {fwd_bwd_s!r} s, against the warm step's {warm['wall_s']!r} s")
+    (loss1, gn1, s1), (loss2, gn2, s2) = runs
+    differ = [names[j] for j in range(len(names)) if not torch.equal(s1[j], s2[j])]
+    same = bool(torch.equal(loss1, loss2)) and bool(torch.equal(gn1, gn2)) and not differ
+    log(f"training slice determinism: loss {float(loss1)!r} / {float(loss2)!r}, grad norm {float(gn1)!r} / "
+        f"{float(gn2)!r}; " + ("bitwise equal, loss, norm and every gradient leaf's sum and sum of squares"
+                               if same else f"NOT bitwise equal; gradient leaves that differ: {differ}"))
+    check(math.isfinite(float(loss1)) and math.isfinite(float(gn1)), "determinism run: non-finite")
+    if profile_run:
+        profile_call(f"train step 1 x {TRAIN_SEQ}", lambda: step_fn(state, batch))
+    del state, runs, s1, s2
+    torch.cuda.empty_cache()
+    return total_bwd
+
+
 def profile_solve(label: str, problem, **opts) -> None:
     """Run one warm ``solve`` under `torch.profiler` and print where its
     device time goes (`profile_call`)."""
@@ -1206,6 +1443,10 @@ def main() -> int:
     entries.append(check_lru_scan_kernel(device))
     entries[-1]["launches"] = run_serving_slice(device, profile_run)
     log(f"serving slice phase {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    entries.append(check_lru_scan_bwd_kernel(device))
+    entries[-1]["launches"] = run_training_slice(device, profile_run)
+    log(f"training slice phase {time.perf_counter() - t0!r} s")
     for entry in entries:
         check(entry["launches"] > 0, f"{entry['name']} was not launched on its path")
     if profile_run:

@@ -4,6 +4,7 @@ from repro_torch.configs.base import (
     SHAPES,
     SUBQUADRATIC,
     ModelConfig,
+    TrainConfig,
     get,
     shape_of,
 )
@@ -13,6 +14,7 @@ __all__ = [
     "SHAPES",
     "SUBQUADRATIC",
     "ModelConfig",
+    "TrainConfig",
     "get",
     "shape_of",
 ]

@@ -6,7 +6,8 @@ default, `SHAPES`, `ARCH_IDS` and `get`. Each ported architecture has one
 module in this package defining ``CONFIG`` (the published numbers) and
 ``SMOKE`` (a reduced config of the same family for CPU tests). Only
 ``recurrentgemma_2b`` is ported so far; `get` raises `KeyError` for the
-others. ``TrainConfig`` comes with the training slice.
+others. `TrainConfig` holds a training run's settings, with the
+reference's fields and defaults.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import importlib
 from dataclasses import dataclass
 from typing import Literal
 
-__all__ = ["ARCH_IDS", "SHAPES", "SUBQUADRATIC", "ModelConfig", "get", "shape_of"]
+__all__ = ["ARCH_IDS", "SHAPES", "SUBQUADRATIC", "ModelConfig", "TrainConfig", "get", "shape_of"]
 
 ARCH_IDS = (
     "olmoe_1b_7b",
@@ -123,6 +124,26 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    seq_len: int = 2048
+    global_batch: int = 32
+    microbatch: int = 0  # 0 => no gradient accumulation
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_clip: float = 1.0
+    seed: int = 0
+    z_loss: float = 1e-4
+    grad_compression: bool = False  # int8 + error feedback on the DP all-reduce
+    checkpoint_every: int = 200
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    keep_checkpoints: int = 3
 
 
 def get(name: str) -> ModelConfig:

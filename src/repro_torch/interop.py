@@ -1,7 +1,7 @@
 """Build the port's objects from numpy arrays.
 
-What carries over from the JAX package is problem data, sketches and LM
-parameters. A caller (the parity tests, for one) exports those as numpy
+What carries over from the JAX package is problem data, sketches, LM
+parameters and training states. A caller (the parity tests, for one) exports those as numpy
 arrays and rebuilds them here, so both packages can run the same problem
 on the same sketch, or the same model on the same weights.
 """
@@ -22,8 +22,16 @@ from repro_torch.core.sparsify import (
 )
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.lm import init_params
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.train.step import TrainState
 
-__all__ = ["block_ell_sketch_from_numpy", "lm_params_from_numpy", "problem_from_numpy", "sketch_from_numpy"]
+__all__ = [
+    "block_ell_sketch_from_numpy",
+    "lm_params_from_numpy",
+    "problem_from_numpy",
+    "sketch_from_numpy",
+    "train_state_from_numpy",
+]
 
 
 def problem_from_numpy(
@@ -167,3 +175,29 @@ def lm_params_from_numpy(tree, cfg, device=None):
         return [convert(e, g, f"{path}[{i}]") for i, (e, g) in enumerate(zip(expected, given))]
 
     return convert(init_params(cfg, device="meta"), tree, "params")
+
+
+def train_state_from_numpy(tree, cfg, tcfg, device=None) -> TrainState:
+    """The port's `TrainState` from the reference's ``TrainState`` with numpy
+    leaves (``jax.tree.map(np.asarray, state)``): ``(params, (step, m, v),
+    ef)``. ``params`` go through `lm_params_from_numpy`; ``m``, ``v`` and
+    ``ef`` are checked key by key and shape by shape the same way and become
+    float32; ``step`` an int32 scalar. ``ef`` must be present exactly when
+    ``tcfg.grad_compression`` is on. A wrong tree raises `ValueError`."""
+    dev = resolve_device(device)
+    if not isinstance(tree, tuple) or len(tree) != 3 or not isinstance(tree[1], tuple) or len(tree[1]) != 3:
+        raise ValueError("state: expected (params, (step, m, v), ef)")
+    params, (step, m, v), ef = tree
+    if (ef is not None) != bool(tcfg.grad_compression):
+        raise ValueError(f"state.ef: {'residuals' if ef is not None else 'None'} given, but "
+                         f"grad_compression is {tcfg.grad_compression}")
+    step = np.asarray(step)
+    if step.shape != () or step.dtype.kind not in "iu":
+        raise ValueError(f"state.opt.step: expected an integer scalar, got {step.dtype} {step.shape}")
+    f32 = cfg.replace(param_dtype="float32")
+    return TrainState(
+        lm_params_from_numpy(params, cfg, dev),
+        AdamWState(torch.tensor(int(step), dtype=torch.int32, device=dev),
+                   lm_params_from_numpy(m, f32, dev), lm_params_from_numpy(v, f32, dev)),
+        None if ef is None else lm_params_from_numpy(ef, f32, dev),
+    )

@@ -50,6 +50,8 @@ SIGNATURES = {
     "block_ell_matvec": (_P, _P, _P, _P, _I64, _I64, _I64, _INT, _I64, _I64, _P, _P, _P),
     # a, b, h, batch, seq, width, stream
     "lru_scan_fwd": (_P, _P, _P, _I64, _I64, _I64, _P),
+    # a, h, g, da (or null), db, batch, seq, width, stream
+    "lru_scan_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
 }
 
 #: kernel name -> number of launches since the last `reset_launch_counts`

@@ -1,9 +1,11 @@
-"""Launch of the CUDA linear-recurrence scan (``csrc/lru_scan.cu``).
+"""Launches of the CUDA linear-recurrence scan (``csrc/lru_scan.cu``).
 
-The counterpart of the reference's ``repro.kernels.lru_scan`` forward
-(``lru_scan_fwd_call``): ``h_t = a_t h_{t-1} + b_t`` over (B, S, W). The
-checked wrapper is `repro_torch.kernels.ops.lru_scan`. The backward
-(``lru_scan_bwd_call``) comes with the training slice.
+The counterparts of the reference's ``repro.kernels.lru_scan``: the forward
+``lru_scan_fwd_call`` (``h_t = a_t h_{t-1} + b_t`` over (B, S, W), kernel
+B5) and the backward ``lru_scan_bwd_call`` with the custom VJP around it
+(``lam_t = g_t + a_{t+1} lam_{t+1}``, ``da = lam h_{t-1}``, ``db = lam``,
+kernel B6). The checked wrapper, a `torch.autograd.Function`, is
+`repro_torch.kernels.ops.lru_scan`.
 """
 from __future__ import annotations
 
@@ -16,3 +18,12 @@ def _launch_lru_scan_fwd(a, b, h) -> None:
     current stream; raises if the launch is refused."""
     bsz, seq, width = a.shape
     launch("lru_scan_fwd", a.device, a.data_ptr(), b.data_ptr(), h.data_ptr(), bsz, seq, width)
+
+
+def _launch_lru_scan_bwd(a, h, g, da, db) -> None:
+    """One counted launch on already-checked CUDA tensors: the forward's
+    ``a`` and ``h``, the cotangent ``g`` and the outputs ``da`` (or None:
+    not written) and ``db``, all contiguous float32 (B, S, W)."""
+    bsz, seq, width = a.shape
+    launch("lru_scan_bwd", a.device, a.data_ptr(), h.data_ptr(), g.data_ptr(),
+           None if da is None else da.data_ptr(), db.data_ptr(), bsz, seq, width)

@@ -19,10 +19,11 @@ from repro_torch.kernels.block_ell import _launch_block_ell_matvec
 from repro_torch.kernels.fused_sinkhorn import _launch_online_lse, _launch_online_matvec
 from repro_torch.kernels.gather_kernel import _launch_gathered_kernel
 from repro_torch.kernels.library import COSTS, LAUNCHES, reset_launch_counts
-from repro_torch.kernels.lru_scan import _launch_lru_scan_fwd
+from repro_torch.kernels.lru_scan import _launch_lru_scan_bwd, _launch_lru_scan_fwd
 from repro_torch.kernels.ref import (
     block_ell_matvec_ref,
     gathered_kernel_ref,
+    lru_scan_bwd_ref,
     lru_scan_ref,
     online_lse_ref,
     online_matvec_ref,
@@ -306,16 +307,47 @@ def batched_block_ell_matvec(
     return _block_ell("batched_block_ell_matvec", vals, col_idx, v, None, bad_index)
 
 
+class _LruScan(torch.autograd.Function):
+    """The scan with the reference's custom VJP (``repro.kernels.ops``):
+    forward B5, backward B6 on CUDA tensors; the plain versions on CPU
+    tensors. It saves ``a`` and ``h`` for the backward."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        if a.device.type == "cpu":
+            h = lru_scan_ref(a, b)
+        else:
+            h = torch.empty_like(a)
+            if h.numel():
+                _launch_lru_scan_fwd(a, b, h)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h = ctx.saved_tensors
+        want_a, want_b = ctx.needs_input_grad
+        g = g.contiguous()
+        if a.device.type == "cpu":
+            da, db = lru_scan_bwd_ref(a, h, g)
+        else:
+            da = torch.empty_like(a) if want_a else None
+            db = torch.empty_like(a)
+            if db.numel():
+                _launch_lru_scan_bwd(a, h, g, da, db)
+        return (da if want_a else None), (db if want_b else None)
+
+
 def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The linear recurrence ``h_t = a_t h_{t-1} + b_t`` along S, with
     ``h_{-1} = 0``: ``(B, S, W), (B, S, W) -> (B, S, W)`` float32.
 
     Takes contiguous float32 tensors on one device. CUDA tensors go through
-    the CUDA kernel (``csrc/lru_scan.cu``); CPU tensors through
-    `lru_scan_ref`. Forward only: the reference's custom VJP (whose
-    backward is the reverse scan, kernel B6) comes with the training slice,
-    so an input that requires grad is refused rather than given a wrong
-    gradient.
+    the CUDA kernel (``csrc/lru_scan.cu``, B5); CPU tensors through
+    `lru_scan_ref`. Differentiable, as the reference's custom VJP: the
+    gradient is the reverse scan, kernel B6 on CUDA tensors
+    (`lru_scan_bwd_ref` on CPU ones), which gives ``db = lam`` and
+    ``da = lam h_{t-1}`` in one pass.
     """
     if a.ndim != 3 or a.shape != b.shape:
         raise ValueError(f"lru_scan: a and b must be (B, S, W) of one shape; got {tuple(a.shape)}, {tuple(b.shape)}")
@@ -323,12 +355,5 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"lru_scan: a and b must be float32; got {a.dtype}, {b.dtype}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("lru_scan: a and b must be contiguous")
-    if a.requires_grad or b.requires_grad:
-        raise NotImplementedError("lru_scan is forward only: its backward (kernel B6) is not ported yet")
-    dev = _one_device("lru_scan", a, b)
-    if dev.type == "cpu":
-        return lru_scan_ref(a, b)
-    h = torch.empty_like(a)
-    if h.numel():
-        _launch_lru_scan_fwd(a, b, h)
-    return h
+    _one_device("lru_scan", a, b)
+    return _LruScan.apply(a, b)

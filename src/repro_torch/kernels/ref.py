@@ -15,6 +15,7 @@ __all__ = [
     "block_ell_matvec_ref",
     "gathered_kernel_ref",
     "linear_scan",
+    "lru_scan_bwd_ref",
     "lru_scan_ref",
     "online_lse_ref",
     "online_matvec_ref",
@@ -171,3 +172,15 @@ def lru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     float32: the doubling `linear_scan` along S (seconds at S = 32768 on
     the card, where a Python loop over S would take minutes)."""
     return linear_scan(a.to(torch.float32), b.to(torch.float32), 1)[1]
+
+
+def lru_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor, g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradients ``(da, db)`` of `lru_scan_ref` at its input ``a`` and
+    output ``h``, for the cotangent ``g`` of ``h``: the reverse recurrence
+    ``lam_t = g_t + a_{t+1} lam_{t+1}`` (a flipped doubling scan), then
+    ``da_t = lam_t h_{t-1}`` and ``db_t = lam_t``, in float32."""
+    a, h, g = (t.to(torch.float32) for t in (a, h, g))
+    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+    lam = torch.flip(lru_scan_ref(torch.flip(a_next, [1]), torch.flip(g, [1])), [1])
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    return lam * h_prev, lam

@@ -4,6 +4,7 @@ from repro_torch.models.lm import (
     forward,
     init_decode_state,
     init_params,
+    loss_fn,
     param_count,
 )
 
@@ -12,5 +13,6 @@ __all__ = [
     "forward",
     "init_decode_state",
     "init_params",
+    "loss_fn",
     "param_count",
 ]

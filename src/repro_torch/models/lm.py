@@ -14,7 +14,7 @@ use. `repro_torch.interop.lm_params_from_numpy` carries the reference's
 parameters over.
 
 Public entry points: ``init_params``, ``param_count``, ``forward``,
-``init_decode_state``, ``decode_step``.
+``loss_fn``, ``init_decode_state``, ``decode_step``.
 """
 from __future__ import annotations
 
@@ -34,8 +34,9 @@ from repro_torch.models.layers import (
     swiglu_init,
     torch_dtype,
 )
+from repro_torch.tree import leaves
 
-__all__ = ["init_params", "param_count", "forward", "init_decode_state", "decode_step"]
+__all__ = ["init_params", "param_count", "forward", "loss_fn", "init_decode_state", "decode_step"]
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -100,19 +101,8 @@ def init_params(cfg: ModelConfig, seed_or_generator: int | torch.Generator = 0, 
     return params
 
 
-def _leaves(tree):
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        for v in tree:
-            yield from _leaves(v)
-
-
 def param_count(params) -> int:
-    return int(sum(t.numel() for t in _leaves(params)))
+    return int(sum(t.numel() for t in leaves(params)))
 
 
 # --------------------------------------------------------------------------
@@ -153,6 +143,31 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *, last_only: bool =
     if last_only:
         x = x[:, -1:, :]
     return _logits(params, x, cfg, dtype), torch.zeros((), dtype=torch.float32, device=tokens.device)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, z_loss: float = 1e-4):
+    """Next-token cross entropy + z-loss (+ the MoE aux, 0 here): ``batch =
+    {"tokens": (B, S)}`` -> (total, {"ce", "z_loss", "moe_aux"}), 0-dim
+    float32 tensors.
+
+    The reference's arithmetic: the LSE is shifted by the row max, whose
+    gradient is stopped; the z-loss is ``z_loss * mean(lse^2)``. The
+    reference takes the target logit as a masked sum over the vocabulary
+    (to suit GSPMD's sharded vocab); a sum of zeros and one logit is that
+    logit exactly, so `torch.gather` gives the same bits without the
+    (B, S, V) mask.
+    """
+    tokens = batch["tokens"]
+    logits, aux = forward(params, tokens, cfg)
+    logits = logits[:, :-1]
+    targets = tokens[:, 1:].long()
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    tgt_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
+    ce = torch.mean(lse - tgt_logit)
+    zl = z_loss * torch.mean(lse**2)
+    total = ce + zl + cfg.aux_loss_weight * aux
+    return total, {"ce": ce, "z_loss": zl, "moe_aux": aux}
 
 
 # --------------------------------------------------------------------------

@@ -9,9 +9,16 @@ numpy inputs.
   ``tests/test_kernels.py::test_lru_scan_kernel_sweep``: rtol = atol = 1e-5,
   the reference's own tolerance (float32 sums in different orders).
 * The doubling `linear_scan` against a float64 sequential loop.
-* The wrapper's refusals: shapes, dtypes, contiguity, devices and inputs
-  that require grad (the backward, kernel B6, is not ported yet).
+* The gradient of ``ops.lru_scan`` (a `torch.autograd.Function` whose
+  backward is kernel B6 on CUDA and `lru_scan_bwd_ref` on the CPU) against
+  ``jax.grad`` of the reference's ``ops.lru_scan`` (its custom VJP over the
+  backward Pallas kernel, in interpret mode) and against the reference's
+  ``ref.lru_scan_bwd_ref``, at the same shapes: rtol = atol = 1e-4, the
+  reference test's tolerance for the gradients.
+* `lru_scan_bwd_ref` against a float64 reverse loop.
+* The wrapper's refusals: shapes, dtypes, contiguity and devices.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,10 +28,11 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import lru_scan
-from repro_torch.kernels.ref import linear_scan, lru_scan_ref
+from repro_torch.kernels.ref import linear_scan, lru_scan_bwd_ref, lru_scan_ref
 
 SHAPES = [(2, 64, 32), (1, 300, 130), (2, 512, 256)]  # tests/test_kernels.py
 TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_kernels.py:120-121
 
 
 def _inputs(shape, seed):
@@ -79,6 +87,60 @@ def test_lru_scan_ref_is_the_recurrence_in_float64_up_to_float32_rounding():
     np.testing.assert_allclose(got.numpy(), h_want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("reference", ["pallas_interpret_vjp", "lru_scan_bwd_ref"])
+def test_lru_scan_gradient_matches_the_reference(shape, reference):
+    a, b = _inputs(shape, sum(shape))
+    g = np.random.default_rng(sum(shape) + 1).standard_normal(shape).astype(np.float32)
+    if reference == "pallas_interpret_vjp":
+        da_want, db_want = jax.grad(lambda x, y: jnp.vdot(jops.lru_scan(x, y), jnp.asarray(g)), argnums=(0, 1))(
+            jnp.asarray(a), jnp.asarray(b))
+    else:
+        h = jref.lru_scan_ref(jnp.asarray(a), jnp.asarray(b))
+        da_want, db_want = jref.lru_scan_bwd_ref(jnp.asarray(a), h, jnp.asarray(g))
+    at = torch.as_tensor(a).requires_grad_()
+    bt = torch.as_tensor(b).requires_grad_()
+    before = dict(ops.LAUNCHES)
+    torch.sum(lru_scan(at, bt) * torch.as_tensor(g)).backward()
+    assert ops.LAUNCHES == before  # CPU tensors: the plain versions, both ways
+    np.testing.assert_allclose(at.grad.numpy(), np.asarray(da_want), **GRAD_TOL)
+    np.testing.assert_allclose(bt.grad.numpy(), np.asarray(db_want), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("length", [1, 2, 33, 300])
+def test_lru_scan_bwd_ref_is_the_reverse_recurrence_in_float64(length):
+    a, b = _inputs((2, length, 5), length)
+    g = np.random.default_rng(length).standard_normal((2, length, 5)).astype(np.float32)
+    _, h = _sequential64(a, b, 1)
+    lam = np.zeros_like(h)
+    nxt = np.zeros_like(h[:, 0])
+    a64 = np.asarray(a, np.float64)
+    for t in range(length - 1, -1, -1):
+        nxt = g[:, t] + (a64[:, t + 1] * nxt if t + 1 < length else 0.0)
+        lam[:, t] = nxt
+    h_prev = np.concatenate([np.zeros_like(h[:, :1]), h[:, :-1]], axis=1)
+    da, db = lru_scan_bwd_ref(torch.as_tensor(a), torch.as_tensor(h, dtype=torch.float32), torch.as_tensor(g))
+    np.testing.assert_allclose(db.numpy(), lam, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(da.numpy(), lam * h_prev, rtol=1e-5, atol=1e-5)
+
+
+def test_lru_scan_takes_inputs_that_require_grad():
+    """Gradients flow to a and b, and only to the inputs that want one."""
+    a, b = (torch.as_tensor(x) for x in _inputs((2, 8, 4), 0))
+    g = torch.as_tensor(np.random.default_rng(1).standard_normal((2, 8, 4)).astype(np.float32))
+    ag, bg = a.clone().requires_grad_(), b.clone().requires_grad_()
+    h = lru_scan(ag, bg)
+    assert h.requires_grad
+    torch.testing.assert_close(h.detach(), lru_scan(a, b), rtol=0, atol=0)
+    torch.sum(h * g).backward()
+    da, db = lru_scan_bwd_ref(a, lru_scan_ref(a, b), g)
+    torch.testing.assert_close(ag.grad, da, rtol=0, atol=0)
+    torch.testing.assert_close(bg.grad, db, rtol=0, atol=0)
+    bg2 = b.clone().requires_grad_()
+    torch.sum(lru_scan(a, bg2) * g).backward()
+    torch.testing.assert_close(bg2.grad, db, rtol=0, atol=0)
+
+
 def _bad_cases():
     a = torch.rand(2, 8, 4)
     return {
@@ -90,7 +152,6 @@ def _bad_cases():
         "non_contiguous": ((a.transpose(1, 2).contiguous().transpose(1, 2), a), ValueError),
         "mixed_devices": ((a, torch.empty(2, 8, 4, device="meta")), ValueError),
         "meta_device": ((torch.empty(2, 8, 4, device="meta"),) * 2, ValueError),
-        "requires_grad": ((a.clone().requires_grad_(), a), NotImplementedError),
     }
 
 
