@@ -2,6 +2,7 @@
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --compare-with OLD_FUSED_SINKHORN_CU
 
 Run from a checkout of the repository on a machine with an NVIDIA H100.
 The first run builds the CUDA kernels (every ``src/repro_torch/kernels/
@@ -16,7 +17,10 @@ failure exits non-zero):
    and ``online_lse`` at n = m = 2^17 (run (a)'s points), in a WFR case at
    n = m = 2^14 with half the pairs and one whole row blocked, and over the
    shapes of the reference's kernel tests; two launches must be bitwise
-   equal;
+   equal; the build's ``-Xptxas -v`` report of every ``online_`` kernel
+   (no spills allowed outside the WFR ones), the rows a thread R and
+   column slices P, and the bare launches' times over P in ``SLICE_SWEEP``
+   at n = m = 2^17 and 2^14;
 3. the main path, ``solve(problem, method="spar_sink_mf")`` at n = 2^17
    (C1 measures, d = 5, float64, eps = 0.1, s = 4 s0(n)): (a) OT in the
    scaling domain, (b) OT with ``stabilize=True``, (c) UOT with masses 5/3
@@ -69,6 +73,10 @@ failure exits non-zero):
 
 ``--profile`` also runs (a), one prefill, one serving decode step and one
 train step under `torch.profiler` and prints where their device time goes.
+``--compare-with`` runs no phase but 1: it builds another
+``fused_sinkhorn.cu`` (an earlier one, or a variant of the current one)
+apart, times its bare launches in turns with the current ones and prints
+both kernels' inner-loop SASS mix (`compare_sources`).
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout, it exits non-zero before printing any result.
@@ -77,6 +85,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -95,6 +104,8 @@ K_TOL = dict(rtol=2e-3, atol=1e-6)  # the reference kernel tests' tolerances
 C_TOL = dict(rtol=2e-4, atol=1e-5)
 MATVEC_TOL = dict(rtol=2e-4, atol=2e-5)
 LSE_TOL = dict(rtol=2e-4, atol=5e-4)
+# column slices P over which phase 2 times the bare online launches
+SLICE_SWEEP = (1, 2, 4, 8, 16)
 # the shapes (n, m, d) of the reference's online-kernel tests (tests/test_kernels.py)
 SWEEP_SHAPES = [(64, 64, 2), (256, 128, 5), (300, 257, 3), (512, 512, 50), (100, 700, 8)]
 NEG_INF = -1e30
@@ -179,6 +190,22 @@ def device_ms(fn, reps: int = 20) -> float | None:
         torch.cuda.synchronize()
     total_us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
     return total_us / reps / 1e3 if total_us > 0 else None
+
+
+def ptxas_report(log_text: str, marker: str) -> dict[str, dict[str, int]]:
+    """Registers, stack frame and spill bytes of every kernel whose
+    (mangled) name holds ``marker``, from the build's ``-Xptxas -v`` log."""
+    report, name = {}, None
+    for line in log_text.splitlines():
+        if found := re.search(r"Compiling entry function '([^']+)'", line):
+            name = found.group(1) if marker in found.group(1) else None
+        elif name and (found := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                           r"(\d+) bytes spill loads", line)):
+            report.setdefault(name, {}).update(
+                stack=int(found.group(1)), spill_stores=int(found.group(2)), spill_loads=int(found.group(3)))
+        elif name and (found := re.search(r"Used (\d+) registers", line)):
+            report.setdefault(name, {})["registers"] = int(found.group(1))
+    return report
 
 
 # --------------------------------------------------------------------------
@@ -322,13 +349,21 @@ def check_online_kernels(n: int, device, sm_clock_hz: float) -> list[dict]:
     """online_matvec and online_lse against their plain versions: at the
     fused path's shape (run (a)'s points, n = m = 2^17, d = 5, eps = 0.1),
     in a WFR case, and over the reference tests' shapes; two launches
-    bitwise equal; times of the wrapper, the bare launch and the plain
-    version."""
+    bitwise equal; the kernels' registers and spills (none allowed outside
+    the WFR kernels), rows a thread R and column slices P; times of the wrapper, the bare launch (at
+    the chosen P and at each P of `SLICE_SWEEP`) and the plain version at
+    2^17, and of the wrapper and the bare launch at n = m = 2^14."""
     import numpy as np
     import torch
 
     from repro_torch.data.pointclouds import make_measures
-    from repro_torch.kernels.fused_sinkhorn import _launch_online_lse, _launch_online_matvec
+    from repro_torch.kernels import library
+    from repro_torch.kernels.fused_sinkhorn import (
+        ROWS_PER_THREAD,
+        _launch_online_lse,
+        _launch_online_matvec,
+        slices_for,
+    )
     from repro_torch.kernels.ops import online_lse, online_matvec
     from repro_torch.kernels.ref import online_lse_ref, online_matvec_ref
 
@@ -346,8 +381,33 @@ def check_online_kernels(n: int, device, sm_clock_hz: float) -> list[dict]:
         ("online_lse", online_lse, online_lse_ref, _launch_online_lse, g, LSE_TOL,
          "src/repro/kernels/fused_sinkhorn.py:142", 2 * d + 10),
     ]
+    report = ptxas_report(library.ptxas_log().read_text(), "online_")
+    check(len(report) > 0, "no online_ kernel in the -Xptxas -v log")
+
+    def short(mangled: str) -> str:  # online_f32<D, kWfr, kLse> as "d5 sq lse"
+        if found := re.search(r"online_f32ILi(\d+)ELb([01])ELb([01])E", mangled):
+            return f"d{found.group(1)} {('sq', 'wfr')[int(found.group(2))]} {('matvec', 'lse')[int(found.group(3))]}"
+        return mangled.split("online_")[-1][:40]
+
+    log("ptxas (registers, spill stores, spill loads, stack bytes) of the online kernels: " + json.dumps(
+        {short(k): [res["registers"], res["spill_stores"], res["spill_loads"], res["stack"]]
+         for k, res in sorted(report.items())}))
+    spilled = [short(k) for k, res in report.items() if res["spill_stores"] or res["spill_loads"]]
+    # the WFR kernels save registers around the calls of their accurate
+    # library functions; no other kernel may spill
+    check(not [k for k in spilled if " wfr " not in k], f"ptxas reports spills outside the WFR kernels {spilled}")
+    log(f"ptxas: kernels with spills {sorted(spilled)}")
     entries = []
     for name, wrapper, plain, bare, w, tol, replaces, ops_per_pair in kernels:
+        lse = name == "online_lse"
+        # the sqeuclidean d = 5 kernel's mangled name: online_f32<5, false, lse>
+        main_kernel = [res for k, res in report.items() if f"online_f32ILi5ELb0ELb{int(lse)}E" in k]
+        check(len(main_kernel) == 1, f"{name}: the d = 5 kernel is not in the -Xptxas -v log")
+        log(f"{name} d=5 sqeuclidean kernel: R = {ROWS_PER_THREAD} rows a thread, "
+            f"P = {slices_for(n, n, d, cost='sqeuclidean', lse=lse)} slices at n = m = {n}, "
+            f"P = {slices_for(1 << 14, 1 << 14, d, cost='sqeuclidean', lse=lse)} at n = m = {1 << 14}, "
+            f"{main_kernel[0]['registers']} registers, {main_kernel[0]['spill_stores']} B spill stores, "
+            f"{main_kernel[0]['spill_loads']} B spill loads, {main_kernel[0]['stack']} B stack")
         out = wrapper(x, x, w, eps=eps)
         again = wrapper(x, x, w, eps=eps)
         ref = plain(x, x, w, eps=eps)
@@ -404,6 +464,22 @@ def check_online_kernels(n: int, device, sm_clock_hz: float) -> list[dict]:
         bound, bound_by, detail = online_bound(n, n, d, ops_per_pair, sm_clock_hz, sms)
         log(f"{name} times: wrapper {ms!r} ms, bare launch {bare_ms!r} ms, plain {plain_ms!r} ms, "
             f"bound {bound!r} ms ({bound_by}: {detail})")
+        # the bare launch over each slice count, and the small-n behaviour of the split
+        n_small = min(n, 1 << 14)
+        xs, ws = xf[:n_small].contiguous(), wf[:n_small].contiguous()
+        for size, pts, wts in ((n, xf, wf), (n_small, xs, ws)):
+            out_p = torch.empty(size, dtype=torch.float32, device=device)
+            sweep = {p: time_ms(lambda p=p: bare(pts, pts, wts, out_p, eps=eps, cost="sqeuclidean",
+                                                  eta=1.0, slices=p), reps=10 if size == n else 20)
+                     for p in SLICE_SWEEP}
+            line = f"{name} bare launch at n=m={size} by slices P: {json.dumps(sweep)}"
+            if size == n_small:
+                small_ms = time_ms(lambda: wrapper(x[:size], x[:size], w[:size], eps=eps))
+                small_bare = time_ms(lambda: bare(xs, xs, ws, out_p, eps=eps, cost="sqeuclidean", eta=1.0))
+                small_bound = online_bound(size, size, d, ops_per_pair, sm_clock_hz, sms)[0]
+                line += (f"; at the chosen P: wrapper {small_ms!r} ms, bare {small_bare!r} ms, "
+                         f"bound {small_bound!r} ms")
+            log(line)
         entries.append({
             "name": name,
             "route": "cuda",
@@ -418,6 +494,167 @@ def check_online_kernels(n: int, device, sm_clock_hz: float) -> list[dict]:
             "library_ms": None,  # no single PyTorch call computes this function
         })
     return entries
+
+
+def sass_loop_mix(lib_path: Path, marker: str, pairs: int | None) -> dict:
+    """The instruction mix of the innermost loop that holds MUFU.EX2 in the
+    kernel whose mangled name holds ``marker``, from ``cuobjdump -sass``
+    (the unrolled loop with the most exponentials, if there are several):
+    counts by opcode class, and the same per pair, for ``pairs`` pairs an
+    iteration (None: one a MUFU, a matvec's unrolled loop). The counts are
+    static: a branch inside the loop that rarely runs (the lazy LSE's
+    rescaling) counts in full."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True, check=True).stdout
+    body, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = marker in line
+        elif inside and (found := re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)):
+            body.append((int(found.group(1), 16), found.group(2).strip()))
+    check(len(body) > 0, f"no SASS for a kernel named like {marker} in {lib_path}")
+    loops = []
+    for addr, ins in body:
+        target = re.search(r"BRA\s+(?:`\(\.L_x_\d+\)|0x([0-9a-f]+))", ins)
+        if target and target.group(1) and int(target.group(1), 16) < addr:
+            loops.append((int(target.group(1), 16), addr))
+
+    def mix(lo, hi):
+        counts = {}
+        for addr, ins in body:
+            if lo <= addr <= hi:
+                op = re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0].split(".")[0]
+                counts[op] = counts.get(op, 0) + 1
+        return counts
+
+    with_exp = [(lo, hi, mix(lo, hi)) for lo, hi in loops]
+    with_exp = [(lo, hi, c) for lo, hi, c in with_exp if c.get("MUFU", 0)]
+    check(len(with_exp) > 0, f"no loop with MUFU in {marker}")
+    innermost = [(lo, hi, c) for lo, hi, c in with_exp
+                 if not any(lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi) for l2, h2, _ in with_exp)]
+    lo, hi, counts = max(innermost, key=lambda item: item[2]["MUFU"])
+    pairs = pairs or counts["MUFU"]
+    classes = ("FFMA", "FADD", "FMUL", "FMNMX", "MUFU", "LDS")
+    per_pair = {op: counts.get(op, 0) / pairs for op in classes}
+    per_pair["all"] = sum(counts.values()) / pairs
+    return {"pairs_per_iteration": pairs, "counts": counts, "per_pair": per_pair}
+
+
+def sampled_clocks(fn):
+    """Run ``fn()`` while nvidia-smi samples the SM clock (MHz) and power
+    draw (W) every 100 ms; returns fn's result and the samples' medians."""
+    sampler = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        result = fn()
+    finally:
+        sampler.terminate()
+        out = sampler.communicate()[0]
+    rows = [[float(v) for v in line.split(",")] for line in out.splitlines() if line.count(",") == 1]
+    medians = {"sm_mhz": statistics.median(r[0] for r in rows), "power_w": statistics.median(r[1] for r in rows),
+               "samples": len(rows)} if rows else None
+    return result, medians
+
+
+def compare_sources(old_source: Path, device) -> None:
+    """``--compare-with OLD_SOURCE``: another ``fused_sinkhorn.cu`` (an
+    earlier one, whose launch functions take (x, y, w, n, m, d, eps, wfr,
+    eta, out, stream), or a variant of the current one, which also takes
+    slices and scratch) is built into a library of its own under
+    ``build/compare/``; its bare
+    online_matvec and online_lse launches and the current ones are timed in
+    turns (old, new, new, old) on run (a)'s points at n = m = 2^17 and 2^14,
+    d = 5, eps = 0.1, after a check that both agree with the plain version,
+    with the SM clock and power draw sampled meanwhile;
+    then the SASS instruction mix of each d = 5 sqeuclidean kernel's inner
+    loop, old and new."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.data.pointclouds import make_measures
+    from repro_torch.kernels import library
+    from repro_torch.kernels.fused_sinkhorn import ROWS_PER_THREAD, _launch_online_lse, _launch_online_matvec
+    from repro_torch.kernels.ref import online_lse_ref, online_matvec_ref
+
+    out_dir = library.BUILD_DIR.parent / "compare"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    old_lib_path = out_dir / "libold_fused_sinkhorn.so"
+    t0 = time.perf_counter()
+    built = subprocess.run([library._nvcc(), *library.NVCC_FLAGS, *library.PTXAS_FLAGS, "-shared", "-o",
+                            str(old_lib_path), str(old_source)], capture_output=True, text=True, check=True)
+    log(f"compare: built {old_source} in {time.perf_counter() - t0!r} s")
+    for kname, res in sorted(ptxas_report(built.stdout + built.stderr, "online_").items()):
+        log(f"compare: old ptxas {kname}: {json.dumps(res)}")
+    old = ctypes.CDLL(str(old_lib_path))
+    sliced = len(library.SIGNATURES["online_matvec"]) == len(
+        re.search(r"int online_matvec_launch\(([^)]*)\)", old_source.read_text()).group(1).split(","))
+    for fn in (old.online_matvec_launch, old.online_lse_launch):
+        fn.argtypes = list(library.SIGNATURES["online_matvec"]) if sliced else [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    if sliced:
+        old.online_slices.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        old.online_slices.restype = ctypes.c_int
+
+    eps, d = 0.1, 5
+    _, _, x = make_measures("C1", 1 << 17, d, seed=0)
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    v = torch.rand(x.shape[0], dtype=torch.float32, device=device, generator=gen)
+    g = 0.1 * torch.randn(x.shape[0], dtype=torch.float32, device=device, generator=gen)
+    kernels = [("online_matvec", old.online_matvec_launch, _launch_online_matvec, online_matvec_ref, v, MATVEC_TOL),
+               ("online_lse", old.online_lse_launch, _launch_online_lse, online_lse_ref, g, LSE_TOL)]
+    for size in (1 << 17, 1 << 14):
+        pts = x[:size].contiguous()
+        for name, old_fn, new_fn, plain, w, tol in kernels:
+            wts = w[:size].contiguous()
+            out = torch.empty(size, dtype=torch.float32, device=device)
+
+            lse = name == "online_lse"
+            extra = ()
+            if sliced:
+                p = old.online_slices(size, size, d, 0, int(lse))
+                part = torch.empty((2 if lse else 1) * p * size, dtype=torch.float32, device=device)
+                extra = (p, part.data_ptr())
+                log(f"compare {name} n=m={size}: the other source takes P = {p}")
+
+            def run_old():
+                code = old_fn(pts.data_ptr(), pts.data_ptr(), wts.data_ptr(), size, size, d, eps, 0, 1.0,
+                              *extra, out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+                check(code == 0, f"old {name} launch failed ({code})")
+
+            def run_new():
+                new_fn(pts, pts, wts, out, eps=eps, cost="sqeuclidean", eta=1.0)
+
+            want = plain(pts, pts, wts, eps=eps)
+            for label, fn in (("old", run_old), ("new", run_new)):
+                fn()
+                torch.cuda.synchronize()
+                torch.testing.assert_close(out, want, **tol)
+                log(f"compare {name} n=m={size}: {label} max_abs_err {_max_abs_err(out, want)!r}")
+            reps = 10 if size == 1 << 17 else 40
+            times, clocks = sampled_clocks(lambda: [(label, time_ms(fn, reps=reps)) for label, fn in (
+                ("old", run_old), ("new", run_new), ("new", run_new), ("old", run_old))])
+            log(f"compare {name} n=m={size} bare launch ms in turns: {json.dumps(times)}; "
+                f"during them (nvidia-smi medians): {json.dumps(clocks)}")
+    new_lib_path = library._build()
+    # pairs an inner-loop iteration: the current source's R rows x 8 columns;
+    # the earlier one's 4 columns (matvec, one MUFU each) and 16 (LSE)
+    rk = ROWS_PER_THREAD * 8
+    new_markers = (("online_matvec", "online_f32ILi5ELb0ELb0E", rk), ("online_lse", "online_f32ILi5ELb0ELb1E", rk))
+    old_markers = new_markers if sliced else (("online_matvec", "online_matvec_f32ILi5ELb0E", None),
+                                              ("online_lse", "online_lse_f32ILi5ELb0E", 16))
+    for label, lib_path, markers in (
+        ("old", old_lib_path, old_markers),
+        ("new", new_lib_path, new_markers),
+    ):
+        for name, marker, pairs in markers:
+            log(f"compare SASS {label} {name} d=5 inner loop: {json.dumps(sass_loop_mix(lib_path, marker, pairs))}")
 
 
 # --------------------------------------------------------------------------
@@ -1416,6 +1653,12 @@ def main() -> int:
     library.load()
     sources = sorted(p.name for p in library.CSRC.glob("*.cu"))
     log(f"built and loaded {len(sources)} CUDA sources {sources} in {time.perf_counter() - t0!r} s")
+
+    args = sys.argv[1:]
+    if "--compare-with" in args:
+        compare_sources(Path(args[args.index("--compare-with") + 1]).resolve(), device)
+        log(card)
+        return 0
 
     n = 2 ** 17
     entries = [check_gathered_kernel(n, default_cap(4 * s0(n)), 5, device)]

@@ -9,8 +9,9 @@ hash of every source and the flags, so an edited source is rebuilt and an
 unchanged tree is loaded as it is.
 
 Every ``<name>_launch`` function of the library launches one kernel on the
-stream it is given (its last argument), allocates nothing, and returns its
-``cudaError_t``; `launch` passes PyTorch's current stream, raises on a code
+stream it is given (its last argument; the online ones, over P > 1 column
+slices, a second that combines the slices), allocates nothing, and returns
+its ``cudaError_t``; `launch` passes PyTorch's current stream, raises on a code
 other than 0 and counts the launch in `LAUNCHES`.
 """
 from __future__ import annotations
@@ -26,11 +27,13 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "CSRC", "LAUNCHES", "launch", "load", "reset_launch_counts"]
+__all__ = ["BUILD_DIR", "CSRC", "LAUNCHES", "launch", "load", "ptxas_log", "reset_launch_counts"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+#: ptxas reports each kernel's registers, shared memory and spills (kept in `ptxas_log`)
+PTXAS_FLAGS = ("-Xptxas=-v",)
 
 #: the cost switch of every launch function
 COSTS = {"sqeuclidean": 0, "wfr": 1}
@@ -41,10 +44,10 @@ _P, _I64, _INT, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_f
 SIGNATURES = {
     # x, y, rows, cols, n, m, k, d, eps, wfr, eta, k_out, c_out, bad_index, stream
     "gathered_kernel": (_P, _P, _P, _P, _I64, _I64, _I64, _INT, _F32, _INT, _F32, _P, _P, _P, _P),
-    # x, y, v, n, m, d, eps, wfr, eta, out, stream
-    "online_matvec": (_P, _P, _P, _I64, _I64, _INT, _F32, _INT, _F32, _P, _P),
-    # x, y, g, n, m, d, eps, wfr, eta, out, stream
-    "online_lse": (_P, _P, _P, _I64, _I64, _INT, _F32, _INT, _F32, _P, _P),
+    # x, y, v, n, m, d, eps, wfr, eta, slices, part, out, stream
+    "online_matvec": (_P, _P, _P, _I64, _I64, _INT, _F32, _INT, _F32, _INT, _P, _P, _P),
+    # x, y, g, n, m, d, eps, wfr, eta, slices, part, out, stream
+    "online_lse": (_P, _P, _P, _I64, _I64, _INT, _F32, _INT, _F32, _INT, _P, _P, _P),
     # vals, col_idx, v, row_ptr, row_blocks, ell_rows, max_blocks, bk, col_blocks,
     # row_blocks_per_sketch, out, bad_index, stream
     "block_ell_matvec": (_P, _P, _P, _P, _I64, _I64, _I64, _INT, _I64, _I64, _P, _P, _P),
@@ -80,8 +83,9 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _run_all(commands: list[list[str]]) -> None:
-    """Run the commands in parallel; raise with the output of the first that fails."""
+def _run_all(commands: list[list[str]]) -> list[str]:
+    """Run the commands in parallel and return their outputs; raise with the
+    output of the first that fails."""
     procs = [
         subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for cmd in commands
@@ -90,11 +94,12 @@ def _run_all(commands: list[list[str]]) -> None:
     for cmd, proc, out in zip(commands, procs, outputs):
         if proc.returncode != 0:
             raise RuntimeError(f"{' '.join(cmd)} failed (exit {proc.returncode}):\n{out}")
+    return outputs
 
 
 def _build() -> Path:
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + PTXAS_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     target = BUILD_DIR / f"librepro_torch_kernels_{digest.hexdigest()[:16]}.so"
@@ -104,11 +109,19 @@ def _build() -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objects = [str(Path(tmp) / f"{src.stem}.o") for src in sources]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)] for src, obj in zip(sources, objects)])
+        logs = _run_all([[nvcc, *NVCC_FLAGS, *PTXAS_FLAGS, "-c", "-o", obj, str(src)]
+                         for src, obj in zip(sources, objects)])
+        ptxas_log(target).write_text("".join(logs))  # before the library: a loader sees both
         lib = str(Path(tmp) / target.name)
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objects]])
         os.replace(lib, target)  # atomic: a concurrent loader sees all or nothing
     return target
+
+
+def ptxas_log(target: Path | None = None) -> Path:
+    """The compiler's report on every kernel of the library ``target`` (by
+    default the one that `load` loads), written when it was built."""
+    return (target or _build()).with_suffix(".ptxas.txt")
 
 
 def load() -> ctypes.CDLL:
@@ -123,6 +136,9 @@ def load() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.cuda_error_string.argtypes = [ctypes.c_int]
             lib.cuda_error_string.restype = ctypes.c_char_p
+            # n, m, d, wfr, lse -> the column slices of an online launch
+            lib.online_slices.argtypes = [_I64, _I64, _INT, _INT, _INT]
+            lib.online_slices.restype = ctypes.c_int
             _lib = lib
         return _lib
 

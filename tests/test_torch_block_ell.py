@@ -21,6 +21,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread a process: the suite runs under six xdist workers, and
+# torch's default of one thread a core would put 48 threads on 8 cores
+torch.set_num_threads(1)
+
 import repro.kernels as jk
 from repro.core import sparsify as jsp
 from repro.core.api import Geometry as JGeometry

@@ -2,7 +2,9 @@
 ``online_lse`` and the O(nd)-memory ``fused_sinkhorn_solve``, held against
 the JAX package (Pallas kernels in interpret mode) on the same numpy inputs.
 
-On CPU tensors the port's wrappers run their plain versions. Tolerances:
+On CPU tensors the port's wrappers run their plain versions; the CUDA
+kernels' arithmetic is emulated in float32 and held against those plain
+versions (the end of the file). Tolerances:
 the reference kernel tests' own, rtol 2e-4 / atol 2e-5 (matvec) and
 rtol 2e-4 / atol 5e-4 (LSE), for two float32 computations that sum in
 different orders; the fused solves as stated at each test.
@@ -14,6 +16,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+# one intra-op thread a process: the suite runs under six xdist workers, and
+# torch's default of one thread a core would put 48 threads on 8 cores
+torch.set_num_threads(1)
 
 import repro.kernels as jk
 from repro.kernels.fused_sinkhorn import online_lse_call as j_online_lse_call
@@ -27,6 +33,7 @@ COSTS = ["sqeuclidean", "wfr"]
 MATVEC_TOL = dict(rtol=2e-4, atol=2e-5)
 LSE_TOL = dict(rtol=2e-4, atol=5e-4)
 NEG_INF = -1e30
+NEG_INF32 = float(np.float32(NEG_INF))
 
 
 def _inputs(n, m, d, seed, weights="uniform"):
@@ -239,3 +246,219 @@ def test_library_signatures_match_the_cuda_sources():
     assert set(library.LAUNCHES) == set(library.SIGNATURES)
     assert "cuda_error_string" in (library.CSRC / "errors.cu").read_text()
     assert "--use_fast_math" not in library.NVCC_FLAGS
+
+
+# --- the CUDA kernels' arithmetic, emulated in float32 torch -----------------
+# The kernels cannot run here, so their arithmetic is written out below and
+# held against the plain versions: the pre-scaled base-2 exponent with its
+# clamp, ex2.approx.ftz (exp2 with results below 2^-126 flushed to 0), the
+# LSE's running max over chunks of 8 columns, and the combination of P column
+# slices' partials in slice order. The emulation uses 32-column tiles so that
+# the test shapes split into several slices, among them an empty one.
+
+LOG2E = np.float32(1.4426950408889634)
+LN2 = np.float32(0.6931471805599453)
+F32_NEG_INF = torch.tensor(NEG_INF, dtype=torch.float32)
+EMU_TILE, EMU_CHUNK = 32, 8
+EPS_GRID = [0.1, 0.01, 1e-3]
+
+
+def _ex2(t):
+    e = torch.exp2(t)
+    return torch.where(e < 2.0 ** -126, 0.0, e)
+
+
+def _kernel_exponents(x, y, eps, cost, eta, form="differences", base=None):
+    """Every pair's base_j + t with t = -C/eps log2(e) <= 0 as the kernels
+    form it (base: g'_j for the LSE, 0 for the matvec), and the WFR blocked
+    mask (None for sqeuclidean). ``form="expansion"`` is the alternative the
+    kernels do not take: -s|x|^2 - s|y|^2 + 2s<x, y>, clamped at 0."""
+    s = _scale(eps)
+    base = torch.zeros(y.shape[0]) if base is None else base
+    if cost == "sqeuclidean" and form == "differences":
+        r = torch.sqrt(s)
+        xs, ys = r * x, r * y
+        t = base[None, :].expand(x.shape[0], -1)
+        for k in range(x.shape[1]):
+            diff = xs[:, k:k + 1] - ys[None, :, k]
+            t = t - diff * diff
+        return t, None
+    xx, yy = torch.sum(x * x, dim=1), torch.sum(y * y, dim=1)
+    if cost == "sqeuclidean":
+        t = (-s * xx)[:, None] + (-s * yy)[None, :] + x @ ((2.0 * s) * y).T
+        return torch.clamp_max(t, 0.0) + base[None, :], None
+    sq = torch.clamp_min(xx[:, None] + yy[None, :] - 2.0 * (x @ y.T), 0.0)
+    c, blocked = ref._cost_from_sq(sq, cost, eta)
+    return c * -s + base[None, :], blocked
+
+
+def _scale(eps):
+    return torch.tensor(LOG2E / np.float32(eps))  # s = kLog2e / eps, in float32
+
+
+def _slices(m, p):
+    """Column ranges of p slices of whole EMU_TILE tiles, as the launcher cuts them."""
+    width = -(-(-(-m // EMU_TILE)) // p) * EMU_TILE
+    return [range(min(q * width, m), min((q + 1) * width, m)) for q in range(p)]
+
+
+def _emulated_matvec(x, y, v, *, eps, cost="sqeuclidean", eta=1.0, slices=1, form="differences"):
+    t, blocked = _kernel_exponents(x, y, eps, cost, eta, form)
+    e = _ex2(t)
+    if blocked is not None:
+        e = torch.where(blocked, 0.0, e)
+    out = torch.zeros(x.shape[0])
+    for cols in _slices(y.shape[0], slices):
+        part = torch.zeros(x.shape[0])
+        for j0 in range(cols.start, cols.stop, EMU_TILE):  # tile sums, added in order
+            j1 = min(j0 + EMU_TILE, cols.stop)
+            part = part + e[:, j0:j1] @ v[j0:j1]
+        out = out + part
+    return out
+
+
+def _lse_result(mx, total):
+    return torch.where(mx > F32_NEG_INF, LN2 * (mx + torch.log2(total)), F32_NEG_INF)
+
+
+def _emulated_lse(x, y, g, *, eps, cost="sqeuclidean", eta=1.0, slices=1):
+    gs = torch.clamp_min(_scale(eps) * g, F32_NEG_INF)  # g'_j, the chains' start
+    z, blocked = _kernel_exponents(x, y, eps, cost, eta, base=gs)
+    if blocked is not None:
+        z = torch.where(blocked, F32_NEG_INF, z)
+    parts = []
+    for cols in _slices(y.shape[0], slices):
+        zs = z[:, cols.start:cols.stop]
+        pad = -zs.shape[1] % EMU_CHUNK  # the ragged end's neutral columns
+        zs = torch.cat([zs, F32_NEG_INF.expand(zs.shape[0], pad)], dim=1)
+        mx, total = F32_NEG_INF.expand(x.shape[0]), torch.zeros(x.shape[0])
+        for c0 in range(0, zs.shape[1], EMU_CHUNK):
+            # the lazy max: the chunk against the max as it stands, unless its
+            # sum passes 2^64; then the max rises to the chunk's
+            chunk = zs[:, c0:c0 + EMU_CHUNK]
+            add = _ex2(chunk - mx[:, None]).sum(dim=1)
+            nm = torch.maximum(mx, chunk.amax(dim=1))
+            exact = total * _ex2(mx - nm) + _ex2(chunk - nm[:, None]).sum(dim=1)
+            lazy = add <= 2.0 ** 64
+            total = torch.where(lazy, total + add, exact)
+            mx = torch.where(lazy, mx, nm)
+        parts.append((mx, total))
+    if len(parts) == 1:
+        return _lse_result(*parts[0])
+    mx = F32_NEG_INF.expand(x.shape[0])
+    for pm, _ in parts:
+        mx = torch.maximum(mx, pm)
+    total = torch.zeros(x.shape[0])
+    for pm, ps in parts:
+        total = total + ps * _ex2(pm - mx)
+    return _lse_result(mx, total)
+
+
+@pytest.mark.parametrize("eps", EPS_GRID)
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("cost", COSTS)
+def test_kernel_arithmetic_matvec_matches_plain_version(cost, shape, eps):
+    """The matvec kernel's arithmetic (one slice, and three over the
+    columns) against `online_matvec_ref`, at its tolerance."""
+    x, y, v = (torch.as_tensor(a) for a in _inputs(*shape, seed=sum(shape)))
+    want = ref.online_matvec_ref(x, y, v, eps=eps, cost=cost, eta=0.3)
+    for slices in (1, 3):
+        got = _emulated_matvec(x, y, v, eps=eps, cost=cost, eta=0.3, slices=slices)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **MATVEC_TOL)
+
+
+@pytest.mark.parametrize("eps", EPS_GRID)
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("cost", COSTS)
+def test_kernel_arithmetic_lse_matches_plain_version(cost, shape, eps):
+    """The LSE kernel's arithmetic in log2 units (one slice, and three)
+    against `online_lse_ref`, at its tolerance."""
+    x, y, g = (torch.as_tensor(a) for a in _inputs(*shape, seed=7 * sum(shape), weights="normal"))
+    want = ref.online_lse_ref(x, y, g, eps=eps, cost=cost, eta=0.3)
+    for slices in (1, 3):
+        got = _emulated_lse(x, y, g, eps=eps, cost=cost, eta=0.3, slices=slices)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **LSE_TOL)
+
+
+def _blocked_case():
+    """WFR at eta = 0.2 (blocked beyond 0.2 pi): 96 targets, the first 32
+    (slice 0 of three) far from every source, and source 0 far from every
+    target (a fully blocked row)."""
+    rng = np.random.default_rng(5)
+    y = rng.uniform(0.0, 0.1, size=(96, 3)).astype(np.float32)
+    y[:32, 0] += 5.0
+    x = rng.uniform(0.0, 0.1, size=(40, 3)).astype(np.float32)
+    x[0, 1] += 10.0
+    return x, y
+
+
+def test_kernel_slice_combine_with_blocked_slice_and_blocked_row():
+    """Slice 0 has only blocked pairs (its partials are 0, and max -1e30
+    with a sum of 32), row 0 only blocked pairs: the combined results match
+    the plain versions, and row 0 is exactly 0 and -1e30."""
+    x, y = (torch.as_tensor(a) for a in _blocked_case())
+    rng = np.random.default_rng(6)
+    v = torch.as_tensor(rng.uniform(size=96).astype(np.float32))
+    g = torch.as_tensor((0.1 * rng.standard_normal(96)).astype(np.float32))
+    for eps in EPS_GRID:
+        kw = dict(eps=eps, cost="wfr", eta=0.2)
+        got_mv = _emulated_matvec(x, y, v, slices=3, **kw)
+        got_lse = _emulated_lse(x, y, g, slices=3, **kw)
+        assert float(got_mv[0]) == 0.0 and float(got_lse[0]) == NEG_INF32
+        np.testing.assert_allclose(got_mv.numpy(), ref.online_matvec_ref(x, y, v, **kw).numpy(),
+                                   **MATVEC_TOL)
+        np.testing.assert_allclose(got_lse.numpy(), ref.online_lse_ref(x, y, g, **kw).numpy(), **LSE_TOL)
+        # slice 0 alone: the plain versions see no mass there either
+        alone = _emulated_lse(x, y[:32], g[:32], **kw)
+        assert torch.equal(alone, F32_NEG_INF.expand(40))
+        assert torch.equal(_emulated_matvec(x, y[:32], v[:32], **kw), torch.zeros(40))
+
+
+@pytest.mark.parametrize("cost", COSTS)
+def test_kernel_lse_arithmetic_with_all_neg_inf_g_gives_the_sentinel(cost):
+    """g = -inf everywhere (every atom dead): every row at exactly -1e30, as
+    the plain version gives, with one slice and with three."""
+    x, y, _ = (torch.as_tensor(a) for a in _inputs(50, 100, 4, seed=8))
+    g = torch.full((100,), -torch.inf)
+    want = ref.online_lse_ref(x, y, g, eps=0.1, cost=cost, eta=0.3)
+    assert torch.equal(want, F32_NEG_INF.expand(50))
+    for slices in (1, 3):
+        assert torch.equal(_emulated_lse(x, y, g, eps=0.1, cost=cost, eta=0.3, slices=slices), want)
+
+
+def test_kernel_constants_follow_the_source():
+    """The rows a thread and the slice limit that the Python side states are
+    the CUDA source's; --use_fast_math stays out, and the approximate
+    exponential is chosen at its call site."""
+    from repro_torch.kernels import fused_sinkhorn
+
+    text = (library.CSRC / "fused_sinkhorn.cu").read_text()
+    assert f"constexpr int kRows = {fused_sinkhorn.ROWS_PER_THREAD};" in text
+    assert f"constexpr int kMaxSlices = {fused_sinkhorn.MAX_SLICES};" in text
+    assert "ex2.approx.ftz.f32" in text
+    assert "expf(" not in text
+
+
+def test_kernel_exponent_by_differences_is_accurate_at_small_eps():
+    """Why the kernels form t from differences, not from the expansion
+    -s|x|^2 - s|y|^2 + 2s<x, y> (3 instructions a pair fewer at d = 5): the
+    expansion rounds relative to s(|x|^2 + |y|^2), not to |t|. At eps = 1e-3
+    on the (300, 257, 3) test shape its matvec is some 0.9 of MATVEC_TOL
+    from the exact (float64) value, and beyond MATVEC_TOL from the float32
+    plain version; the differences stay within 5 % of MATVEC_TOL of the
+    exact value at every eps of the grid."""
+    x, y, v = (torch.as_tensor(a) for a in _inputs(300, 257, 3, seed=560))
+    xd, yd, vd = x.double(), y.double(), v.double()
+    share = {}
+    for eps in EPS_GRID:
+        exact = torch.exp(-torch.cdist(xd, yd) ** 2 / eps) @ vd
+        tol = MATVEC_TOL["atol"] + MATVEC_TOL["rtol"] * exact.abs()
+        for form in ("differences", "expansion"):
+            got = _emulated_matvec(x, y, v, eps=eps, slices=3, form=form).double()
+            share[form, eps] = float(((got - exact).abs() / tol).max())
+    print({f"{form} eps={eps}": round(val, 4) for (form, eps), val in share.items()})
+    assert all(share["differences", eps] < 0.05 for eps in EPS_GRID)
+    assert share["expansion", 1e-3] > 10 * share["differences", 1e-3]
+    plain = ref.online_matvec_ref(x, y, v, eps=1e-3)
+    expansion = _emulated_matvec(x, y, v, eps=1e-3, slices=3, form="expansion")
+    assert not torch.allclose(expansion, plain, **MATVEC_TOL)

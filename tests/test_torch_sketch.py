@@ -12,6 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread a process: the suite runs under six xdist workers, and
+# torch's default of one thread a core would put 48 threads on 8 cores
+torch.set_num_threads(1)
+
 from repro_torch.core.api import Geometry, OTProblem, PointCloudGeometry, UOTProblem
 from repro_torch.core.api import build_mf_log_sketch, build_mf_sketch
 from repro_torch.core.spar_sink import s0

@@ -13,6 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+# one intra-op thread a process: the suite runs under six xdist workers, and
+# torch's default of one thread a core would put 48 threads on 8 cores
+torch.set_num_threads(1)
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.core.api import Geometry as JGeometry
