@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--profile]
-    python3 chip_smoke.py --compare-with OLD_FUSED_SINKHORN_CU
+    python3 chip_smoke.py --compare-with OTHER.cu [OTHER.cu ...]
 
 Run from a checkout of the repository on a machine with an NVIDIA H100.
 The first run builds the CUDA kernels (every ``src/repro_torch/kernels/
@@ -37,18 +37,31 @@ failure exits non-zero):
    2 launches for each iteration the loop executed; then the relative error
    of run (a)'s ``spar_sink_mf`` value against the dense objective;
 6. the block-ELL path at n = 8192 (run (a)'s and run (c)'s problems, block
-   128, s = 16 s0): ``block_ell_matvec`` against its plain version on the
-   solver's own sketch (both layouts, the transposed one also against a
-   float64 scatter), over the reference test shapes, on a WFR sketch whose
-   blocked rows must come out exactly 0, and batched (B = 8); then
-   ``solve(problem, method="spar_sink_block_ell")`` for OT (twice, bitwise
-   equal) and UOT, with 2 launches for each iteration the loop executed;
-   the mean relative error over 4 seeds against phase 4's ``log`` value; and
-   the card's OT sketch solved by the float64 CPU path (the one labelled CPU
-   run);
+   128, s = 16 s0): ``block_ell_matvec`` (``K~ v``) against its plain
+   version on the solver's own sketch (both layouts, the transposed one
+   also against a float64 scatter), over the reference test shapes, on a
+   WFR sketch whose blocked rows must come out exactly 0, and batched
+   (B = 8); ``block_ell_rmatvec`` (``K~^T u`` on the row layout's tiles,
+   the solver's launch) against its plain version and the float64 scatter
+   in float64 and float32 and at block 64, and ``K~ v`` on float64 v with
+   the bits of a cast to float32, the float32 launch and a cast back; the
+   times of both products as the solver calls them and as the
+   transposed-layout path calls them (casts around the checked wrapper,
+   ``K~^T u`` on the transposed layout), bare and on the device, beside
+   cuSPARSE's BSR product on each layout; then ``solve(problem,
+   method="spar_sink_block_ell")`` for OT (twice, bitwise equal) and UOT,
+   with one launch of each product for each iteration the loop executed
+   and no other; OT solves of this path and of the transposed-layout path
+   in turns, one of each under the profiler (each product's device time
+   inside the solve), and the latter's OT and UOT values against this
+   path's; the mean relative error over 4 seeds
+   against phase 4's ``log`` value; and the card's OT sketch solved by the
+   float64 CPU path (the one labelled CPU run);
 7. the RecurrentGemma-2B serving slice at full width: ``lru_scan`` (B5)
-   against its plain version at the prefill shape (1, 32768, 2560) and the
-   reference test shapes, two launches bitwise equal; the full-width
+   against its plain version at the prefill shape (1, 32768, 2560), the
+   training shape (1, 2048, 2560), the reference test shapes and a
+   sequence shorter than one chunk, two launches bitwise equal; the
+   full-width
    parameters (3.55e9, float32 masters drawn on the card) with
    ``rglru_backend="pallas"``; one RG-LRU layer's ``pallas`` and
    ``chunked`` backends against each other in float32 at (1, 32768, 2560);
@@ -73,10 +86,11 @@ failure exits non-zero):
 
 ``--profile`` also runs (a), one prefill, one serving decode step and one
 train step under `torch.profiler` and prints where their device time goes.
-``--compare-with`` runs no phase but 1: it builds another
-``fused_sinkhorn.cu`` (an earlier one, or a variant of the current one)
-apart, times its bare launches in turns with the current ones and prints
-both kernels' inner-loop SASS mix (`compare_sources`).
+``--compare-with`` runs no phase but 1: it builds each other source (an
+earlier ``fused_sinkhorn.cu``, ``block_ell.cu`` or ``lru_scan.cu``, or a
+variant of the current one) apart and times its bare launches in turns
+with the current ones (`compare_sources`, which also prints both online
+kernels' inner-loop SASS mix; `compare_block_ell`; `compare_lru_scan`).
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout, it exits non-zero before printing any result.
@@ -113,9 +127,10 @@ NEG_INF = -1e30
 BLOCK_ELL_TOL = dict(rtol=2e-4, atol=1e-6)
 BLOCK_ELL_SHAPES = [(8, 2, 4), (16, 4, 8), (32, 3, 4)]
 # the reference's LRU scan test (tests/test_kernels.py::test_lru_scan_kernel_sweep):
-# tolerance and shapes; the serving slice's prefill shape (B, S, W) comes first
+# tolerance and shapes; the serving slice's prefill shape (B, S, W) and the
+# training slice's come first (both timed), a sequence shorter than a chunk last
 LRU_TOL = dict(rtol=1e-5, atol=1e-5)
-LRU_SHAPES = [(1, 32768, 2560), (2, 64, 32), (1, 300, 130), (2, 512, 256)]
+LRU_SHAPES = [(1, 32768, 2560), (1, 2048, 2560), (2, 64, 32), (1, 300, 130), (2, 512, 256), (2, 20, 40)]
 # the decode-matches-forward tolerances of tests/test_models.py
 DECODE_TOL = dict(rtol=2e-2, atol=2e-3)
 PREFILL_LEN = 32768  # the prefill_32k cell's sequence length
@@ -206,6 +221,15 @@ def ptxas_report(log_text: str, marker: str) -> dict[str, dict[str, int]]:
         elif name and (found := re.search(r"Used (\d+) registers", line)):
             report.setdefault(name, {})["registers"] = int(found.group(1))
     return report
+
+
+def log_ptxas(marker: str) -> None:
+    """Print the build's ptxas report (registers, stack, spills) of every
+    kernel whose mangled name holds ``marker``."""
+    from repro_torch.kernels import library
+
+    for name, res in sorted(ptxas_report(library.ptxas_log().read_text(), marker).items()):
+        log(f"ptxas {name}: {json.dumps(res)}")
 
 
 # --------------------------------------------------------------------------
@@ -559,6 +583,32 @@ def sampled_clocks(fn):
     return result, medians
 
 
+def build_apart(source: Path, marker: str):
+    """Build another CUDA source into a library of its own under
+    ``build/compare/`` (the current library's flags) and print the ptxas
+    report of its kernels named like ``marker``; returns the loaded library
+    and its path."""
+    import ctypes
+
+    from repro_torch.kernels import library
+
+    out_dir = library.BUILD_DIR.parent / "compare"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / f"libold_{source.stem}.so"
+    t0 = time.perf_counter()
+    built = subprocess.run([library._nvcc(), *library.NVCC_FLAGS, *library.PTXAS_FLAGS, "-shared", "-o",
+                            str(lib_path), str(source)], capture_output=True, text=True, check=True)
+    log(f"compare: built {source} in {time.perf_counter() - t0!r} s")
+    for kname, res in sorted(ptxas_report(built.stdout + built.stderr, marker).items()):
+        log(f"compare: old ptxas {kname}: {json.dumps(res)}")
+    return ctypes.CDLL(str(lib_path)), lib_path
+
+
+def c_arity(source_text: str, function: str) -> int:
+    """The number of parameters of the C function ``function`` in a source."""
+    return len(re.search(rf"int {function}\(([^)]*)\)", source_text).group(1).split(","))
+
+
 def compare_sources(old_source: Path, device) -> None:
     """``--compare-with OLD_SOURCE``: another ``fused_sinkhorn.cu`` (an
     earlier one, whose launch functions take (x, y, w, n, m, d, eps, wfr,
@@ -580,18 +630,8 @@ def compare_sources(old_source: Path, device) -> None:
     from repro_torch.kernels.fused_sinkhorn import ROWS_PER_THREAD, _launch_online_lse, _launch_online_matvec
     from repro_torch.kernels.ref import online_lse_ref, online_matvec_ref
 
-    out_dir = library.BUILD_DIR.parent / "compare"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    old_lib_path = out_dir / "libold_fused_sinkhorn.so"
-    t0 = time.perf_counter()
-    built = subprocess.run([library._nvcc(), *library.NVCC_FLAGS, *library.PTXAS_FLAGS, "-shared", "-o",
-                            str(old_lib_path), str(old_source)], capture_output=True, text=True, check=True)
-    log(f"compare: built {old_source} in {time.perf_counter() - t0!r} s")
-    for kname, res in sorted(ptxas_report(built.stdout + built.stderr, "online_").items()):
-        log(f"compare: old ptxas {kname}: {json.dumps(res)}")
-    old = ctypes.CDLL(str(old_lib_path))
-    sliced = len(library.SIGNATURES["online_matvec"]) == len(
-        re.search(r"int online_matvec_launch\(([^)]*)\)", old_source.read_text()).group(1).split(","))
+    old, old_lib_path = build_apart(old_source, "online_")
+    sliced = len(library.SIGNATURES["online_matvec"]) == c_arity(old_source.read_text(), "online_matvec_launch")
     for fn in (old.online_matvec_launch, old.online_lse_launch):
         fn.argtypes = list(library.SIGNATURES["online_matvec"]) if sliced else [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
@@ -655,6 +695,184 @@ def compare_sources(old_source: Path, device) -> None:
     ):
         for name, marker, pairs in markers:
             log(f"compare SASS {label} {name} d=5 inner loop: {json.dumps(sass_loop_mix(lib_path, marker, pairs))}")
+
+
+def in_turns(runs, reps: int):
+    """Each ``(label, fn)`` timed in turns, ``fn()`` a bare launch: a list of
+    (label, median ms) in the order given, with the SM clock and power
+    medians of nvidia-smi meanwhile."""
+    return sampled_clocks(lambda: [(label, time_ms(fn, reps=reps)) for label, fn in runs])
+
+
+def compare_block_ell(old_source: Path, device) -> None:
+    """``--compare-with OLD_BLOCK_ELL_CU``: another ``block_ell.cu`` (an
+    earlier one, whose one launch function takes float32 v and no dtype
+    switch, or a variant of the current one) built apart; on the n = 8192 OT
+    sketch of phase 6, its ``K~ v`` on the row layout and its ``K~^T u`` (the
+    same kernel on the transposed layout) against the current launches, each
+    first held against the plain version, then timed in turns (old, new,
+    new, old) as bare launches on float32 v, with device times from the
+    profiler; the current ones on float64 v too. Then the host time of a
+    launch through `library.launch` and through PR 16's
+    (`compare_launch_path`)."""
+    import ctypes
+
+    import torch
+
+    import repro_torch as rt
+    from repro_torch.kernels.block_ell import _launch_block_ell_matvec, _launch_block_ell_rmatvec
+    from repro_torch.kernels.ref import block_ell_matvec_ref, block_ell_rmatvec_ref
+
+    old, _ = build_apart(old_source, "block_ell")
+    typed = c_arity(old_source.read_text(), "block_ell_matvec_launch") == 14
+    P, I64, INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    old.block_ell_matvec_launch.argtypes = [P, P, P, P, I64, I64, I64, INT, I64, I64] + ([INT] if typed else []) + [P, P, P]
+    old.block_ell_matvec_launch.restype = ctypes.c_int
+    n = 8192
+    ot, _ = block_ell_problems(n, device)
+    sk = rt.build_block_ell_sketch(ot, torch.Generator(device=device).manual_seed(0), 16 * rt.s0(n))
+    skt = transposed32(sk)
+    gen = torch.Generator(device=device).manual_seed(1)
+    v = torch.rand(n, dtype=torch.float64, device=device, generator=gen)
+    v32 = v.to(torch.float32)
+    flag = torch.zeros(1, dtype=torch.int32, device=device)
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    out64 = torch.empty(n, dtype=torch.float64, device=device)
+
+    def old_launch(lay):
+        code = old.block_ell_matvec_launch(
+            lay.vals32.data_ptr(), lay.col_idx.data_ptr(), v32.data_ptr(),
+            None if lay.row_ptr is None else lay.row_ptr.data_ptr(), lay.n // lay.block, lay.vals.shape[0],
+            lay.max_blocks, lay.block, lay.m // lay.block, lay.n // lay.block, *([0] if typed else []),
+            out.data_ptr(), flag.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+        check(code == 0, f"old block_ell_matvec launch failed ({code})")
+
+    def new_matvec(w, o):
+        return lambda: _launch_block_ell_matvec(sk.vals32, sk.col_idx, w, None, o, flag, col_blocks=n // sk.block,
+                                                row_blocks_per_sketch=n // sk.block)
+
+    def new_rmatvec(w, o):
+        return lambda: _launch_block_ell_rmatvec(sk.vals32, sk.columns, w, o, flag)
+
+    products = (
+        ("K~ v", lambda: old_launch(sk), new_matvec(v32, out), new_matvec(v, out64),
+         block_ell_matvec_ref(sk.vals32, sk.col_idx, v32.reshape(-1, sk.block)).reshape(-1)),
+        ("K~^T u", lambda: old_launch(skt), new_rmatvec(v32, out), new_rmatvec(v, out64),
+         block_ell_rmatvec_ref(sk.vals32, sk.columns, v32.reshape(-1, sk.block)).reshape(-1)),
+    )
+    for name, run_old, run_new, run_new64, want in products:
+        for label, fn, o in (("old", run_old, out), ("new", run_new, out), ("new float64", run_new64, out64)):
+            fn()
+            torch.cuda.synchronize()
+            torch.testing.assert_close(o.float(), want, **BLOCK_ELL_TOL)
+            log(f"compare block-ELL {name}: {label} max_abs_err {_max_abs_err(o.float(), want)!r}")
+        times, clocks = in_turns((("old", run_old), ("new", run_new), ("new", run_new), ("old", run_old)), reps=50)
+        dev = {label: device_ms(fn, reps=50) for label, fn in (("old", run_old), ("new", run_new),
+                                                               ("new float64", run_new64))}
+        log(f"compare block-ELL {name} n={n}: bare launch ms in turns (float32 v) {json.dumps(times)}; "
+            f"device ms (profiler) {json.dumps(dev)}; the new launch on float64 v "
+            f"{time_ms(run_new64, reps=50)!r} ms; during the turns (nvidia-smi medians) {json.dumps(clocks)}")
+    check(int(flag) == 0, "a compared block-ELL launch flagged an index")
+    compare_launch_path(lambda: _launch_block_ell_matvec(sk.vals32, sk.col_idx, v, None, out64, flag,
+                                                         col_blocks=n // sk.block, row_blocks_per_sketch=n // sk.block))
+
+
+def compare_launch_path(run_launch, launches: int = 2000, rounds: int = 6) -> None:
+    """Host time a launch of ``run_launch()`` (a bare ``K~ v`` launch)
+    through `library.launch` and through PR 16's ``launch`` (the library
+    looked up under the lock, the device context entered on every call,
+    the function found by name), each over ``launches`` back-to-back
+    launches (host clock, no sync inside; the kernel is shorter than the
+    host work, so the host sets the pace), in turns, ``rounds`` times."""
+    import torch
+
+    from repro_torch.kernels import block_ell, library
+
+    def pr16_launch(name, device, *args):
+        lib = library.load()
+        with torch.cuda.device(device):
+            code = getattr(lib, f"{name}_launch")(*args, torch.cuda.current_stream(device).cuda_stream)
+        check(code == 0, f"{name} launch through PR 16's path failed ({code})")
+        library.LAUNCHES[name] += 1
+
+    paths = {"library.launch": library.launch, "PR 16's launch": pr16_launch}
+    us = {label: [] for label in paths}
+    try:
+        for r in range(rounds):
+            for label in (list(paths) if r % 2 == 0 else list(paths)[::-1]):
+                block_ell.launch = paths[label]
+                for _ in range(launches // 10):
+                    run_launch()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(launches):
+                    run_launch()
+                us[label].append((time.perf_counter() - t0) / launches * 1e6)
+                torch.cuda.synchronize()
+    finally:
+        block_ell.launch = library.launch
+    log(f"launch path: host us a bare K~ v launch ({launches} back to back, {rounds} rounds in turns): "
+        + "; ".join(f"{label}: median {statistics.median(v)!r}, all {v!r}" for label, v in us.items()))
+
+
+def compare_lru_scan(old_source: Path, device) -> None:
+    """``--compare-with OLD_LRU_SCAN_CU``: another ``lru_scan.cu`` (an
+    earlier one, whose forward walks each channel in one thread and takes no
+    chunk or scratch, or a variant of the current one) built apart; its forward and
+    the current one held against the plain version, then timed in turns
+    (old, new, new, old) as bare launches at the prefill shape
+    (1, 32768, 2560) and the training shape (1, 2048, 2560), with device
+    times from the profiler."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels.library import load
+    from repro_torch.kernels.lru_scan import _launch_lru_scan_fwd
+    from repro_torch.kernels.ref import lru_scan_ref
+
+    old, _ = build_apart(old_source, "lru_")
+    chunked = c_arity(old_source.read_text(), "lru_scan_fwd_launch") == 9
+    P, I64 = ctypes.c_void_p, ctypes.c_int64
+    old.lru_scan_fwd_launch.argtypes = [P, P, P, I64, I64, I64] + ([I64, P] if chunked else []) + [P]
+    old.lru_scan_fwd_launch.restype = ctypes.c_int
+    if chunked:
+        old.lru_scan_chunk.argtypes = [I64, I64, I64]
+        old.lru_scan_chunk.restype = I64
+    for shape in ((1, PREFILL_LEN, 2560), (1, TRAIN_SEQ, 2560)):
+        gen = torch.Generator(device=device).manual_seed(sum(shape))
+        a = 0.7 + 0.299 * torch.rand(shape, device=device, generator=gen)
+        b = 0.1 * torch.randn(shape, device=device, generator=gen)
+        h = torch.empty_like(a)
+        extra = ()
+        if chunked:
+            chunk = old.lru_scan_chunk(*shape)
+            part = torch.empty(3 * shape[0] * -(-shape[1] // chunk) * shape[2], device=device)
+            extra = (chunk, part.data_ptr())
+
+        def run_old():
+            code = old.lru_scan_fwd_launch(a.data_ptr(), b.data_ptr(), h.data_ptr(), *shape, *extra,
+                                           torch.cuda.current_stream(device).cuda_stream)
+            check(code == 0, f"old lru_scan_fwd launch failed ({code})")
+
+        def run_new():
+            _launch_lru_scan_fwd(a, b, h)
+
+        want = lru_scan_ref(a, b)
+        for label, fn in (("old", run_old), ("new", run_new)):
+            fn()
+            torch.cuda.synchronize()
+            torch.testing.assert_close(h, want, **LRU_TOL)
+            log(f"compare lru_scan_fwd {shape}: {label} max_abs_err {_max_abs_err(h, want)!r}")
+        del want
+        reps = 20 if shape[1] == PREFILL_LEN else 50
+        times, clocks = in_turns((("old", run_old), ("new", run_new), ("new", run_new), ("old", run_old)), reps)
+        dev = {label: device_ms(fn, reps=reps) for label, fn in (("old", run_old), ("new", run_new))}
+        log(f"compare lru_scan_fwd {shape} (chunks of {load().lru_scan_chunk(*shape)}): bare launch ms in turns "
+            f"{json.dumps(times)}; device ms (profiler) {json.dumps(dev)}; bound "
+            f"{3 * a.numel() * 4 / HBM_BYTES_PER_S * 1e3!r} ms (bytes); during the turns (nvidia-smi medians) "
+            f"{json.dumps(clocks)}")
+        del a, b, h
 
 
 # --------------------------------------------------------------------------
@@ -861,19 +1079,37 @@ def block_ell_problems(n: int, device, seed: int = 0):
     return ot, uot
 
 
-def block_ell_bytes(sk) -> int:
-    """Least bytes of one launch on a layout: every tile, column id and
-    row_ptr entry read once, v read once, the output written once."""
-    ell_rows, width, bk = sk.vals.shape[0], sk.vals.shape[1], sk.block
-    return 4 * (ell_rows * width * (bk * bk + 1) + sk.m + sk.n
-                + (0 if sk.row_ptr is None else sk.row_ptr.numel()))
+def transposed32(sk):
+    """The sketch's transposed layout with the float32 tiles that PR 16's
+    ``K~^T u`` launch read (the port's kernels read the row layout only, so
+    its sketches carry no such copy; the comparisons make it here)."""
+    import torch
+
+    t = sk.transposed
+    return t._replace(vals32=t.vals.to(torch.float32).contiguous())
 
 
-def block_ell_bound(nbytes: int, ell_rows: int, width: int, bk: int):
+def block_ell_bytes(sk, itemsize: int, rmatvec: bool = False) -> int:
+    """Least bytes of one product on a layout, for this sketch's data: each
+    valid tile read once with its column id (the zero tiles that pad the
+    ELL rows to ``max_blocks`` slots are not needed, though ``K~ v``'s
+    kernel reads them), ``row_ptr`` where there is one, the input read once
+    and the output written once at ``itemsize`` bytes a value; for ``K~^T
+    u`` (``rmatvec``) each tile's row-block and the column lists' two
+    offset arrays instead of the column ids and ``row_ptr``."""
+    tiles, bk, ncb = int(sk.nblocks.sum()), sk.block, sk.m // sk.block
+    if rmatvec:
+        index = 2 * tiles + 2 * (ncb + 1)
+    else:
+        index = tiles + (0 if sk.row_ptr is None else sk.row_ptr.numel())
+    return 4 * (tiles * bk * bk + index) + itemsize * (sk.m + sk.n)
+
+
+def block_ell_bound(nbytes: int, tiles: int, bk: int):
     """(bound ms, bound_by): bytes at the HBM rate against 2 float32
-    operations per tile element at the float32 rate."""
+    operations per element of the ``tiles`` valid tiles at the float32 rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * ell_rows * width * bk * bk / FP32_OPS_PER_S * 1e3
+    t_ops = 2 * tiles * bk * bk / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -891,23 +1127,23 @@ def scatter_rmatvec64(sk, u):
 
 
 def bsr_library_ms(sk, v32):
-    """Time of cuSPARSE's block-sparse mat-vec on the sketch's valid tiles
-    (``torch.sparse_bsr_tensor @ v`` in float32), and its largest error
-    against the kernel's plain version; (None, reason) where PyTorch
-    refuses the call."""
+    """Time of cuSPARSE's block-sparse mat-vec on a layout's valid tiles
+    (``torch.sparse_bsr_tensor @ v`` in float32; on the transposed layout,
+    ``K~^T v``), and its largest error against the kernel's plain version;
+    (None, reason) where PyTorch refuses the call."""
     import torch
 
     from repro_torch.kernels.ref import block_ell_matvec_ref
 
-    bk, ncb = sk.block, sk.m // sk.block
+    bk, ncb, nrb = sk.block, sk.m // sk.block, sk.n // sk.block
     valid = torch.arange(sk.max_blocks, device=v32.device)[None, :] < sk.nblocks[:, None]
-    rows = torch.arange(sk.nblocks.shape[0], device=v32.device)[:, None].expand_as(valid)[valid]
+    rows = sk.row_blocks_of_ell_rows()[:, None].expand_as(valid)[valid]
     cols = sk.col_idx[valid].long()
     order = torch.argsort(rows * ncb + cols)
-    crow = torch.zeros(sk.n // bk + 1, dtype=torch.int64, device=v32.device)
-    crow[1:] = torch.cumsum(sk.nblocks.long(), 0)
+    crow = torch.zeros(nrb + 1, dtype=torch.int64, device=v32.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=nrb), 0)
     col = v32[:, None]
-    ref = block_ell_matvec_ref(sk.vals32, sk.col_idx, v32.reshape(-1, bk)).reshape(-1)
+    ref = block_ell_matvec_ref(sk.vals32, sk.col_idx, v32.reshape(-1, bk), sk.row_ptr).reshape(-1)
     try:  # the library call only: it is timed here and used nowhere in the port
         bsr = torch.sparse_bsr_tensor(crow, cols[order], sk.vals32[valid][order], size=(sk.n, sk.m))
         out = (bsr @ col)[:, 0]
@@ -919,27 +1155,35 @@ def bsr_library_ms(sk, v32):
     return time_ms(lambda: bsr @ col), f"device time {dev_ms!r} ms (profiler), max_abs_err against the plain version {err!r}"
 
 
-def check_block_ell_kernel(n: int, device) -> dict:
-    """B4 against its plain version on the card: at the solver's own OT
-    sketch (n = 8192, block 128, s = 16 s0) on both layouts, over the
+def check_block_ell_kernel(n: int, device) -> list[dict]:
+    """B4 against its plain versions on the card: ``K~ v`` at the solver's
+    own OT sketch (n = 8192, block 128, s = 16 s0) on both layouts, over the
     reference test shapes, on the WFR zero-mass sketch of the reference's
-    kernel test, and batched (B = 8 of the solver's sketches); two launches
-    bitwise equal; times of the wrapper as the path calls it, the bare
-    launch, the plain version, cuSPARSE's BSR mat-vec and the batched launch."""
+    kernel test, and batched (B = 8 of the solver's sketches); ``K~^T u`` on
+    the row layout's tiles (the solver's launch) against its plain version
+    and the float64 scatter, in float64 and float32, and at block 64; ``K~ v``
+    on float64 v with the bits of a cast, the float32 launch and a cast;
+    both products on tiles 4 bytes into their storage (the any-Bk kernels);
+    two launches bitwise equal; times of each product as the solver calls
+    it (and as the transposed-layout path calls it: casts around the
+    checked wrapper, ``K~^T u`` on the transposed layout), the bare launches, the plain
+    versions, cuSPARSE's BSR mat-vec on each layout and the batched launch.
+    Returns the entries of both products."""
     import numpy as np
     import torch
 
     import repro_torch as rt
     from repro_torch.core import sparsify
     from repro_torch.core.geometry import gibbs_kernel, wfr_cost
-    from repro_torch.kernels.block_ell import _launch_block_ell_matvec
-    from repro_torch.kernels.ops import batched_block_ell_matvec, block_ell_matvec
-    from repro_torch.kernels.ref import block_ell_matvec_ref
+    from repro_torch.kernels.block_ell import UNIT_TILES, _launch_block_ell_matvec, _launch_block_ell_rmatvec
+    from repro_torch.kernels.ops import batched_block_ell_matvec, block_ell_matvec, block_ell_sketch_rmatvec
+    from repro_torch.kernels.ref import block_ell_matvec_ref, block_ell_rmatvec_ref
 
+    log_ptxas("block_ell")
     ot, _ = block_ell_problems(n, device)
     s = 16 * rt.s0(n)
     sk = rt.build_block_ell_sketch(ot, torch.Generator(device=device).manual_seed(0), s)
-    skt = sk.transposed
+    skt = transposed32(sk)
     gen = torch.Generator(device=device).manual_seed(1)
     v = torch.rand(n, dtype=torch.float64, device=device, generator=gen)
     errs = []
@@ -965,6 +1209,60 @@ def check_block_ell_kernel(n: int, device) -> dict:
     torch.testing.assert_close(out_t, ref64, **BLOCK_ELL_TOL)
     err64 = _max_abs_err(out_t, ref64)
     log(f"block_ell_matvec transposed layout against the float64 scatter K~^T v: max_abs_err={err64!r}")
+
+    # K~^T u on the row layout's tiles through the column lists (the solver's
+    # launch), in the path's float64 and in float32; K~ v on float64 v has
+    # the bits of a cast to float32, the float32 launch and a cast back
+    cols = sk.columns
+    log(f"column lists: {int(cols.col_ptr[-1])} valid tiles of {sk.vals.shape[0] * sk.max_blocks} slots, "
+        f"{cols.units} work units of at most {UNIT_TILES} tiles, the fullest column-block "
+        f"{int(torch.diff(cols.col_ptr).max())} tiles")
+    flag = torch.zeros(1, dtype=torch.int32, device=device)
+    ref_t = block_ell_rmatvec_ref(sk.vals32, cols, v.reshape(-1, sk.block)).reshape(-1)
+    errs_t = []
+    for dt in (torch.float64, torch.float32):
+        vt = v.to(dt)
+        out_t = sparsify.block_ell_rmatvec(sk, vt, flag)
+        again = sparsify.block_ell_rmatvec(sk, vt, flag)
+        torch.cuda.synchronize()
+        check(out_t.dtype == dt and bool(torch.equal(out_t, again)), f"block_ell_rmatvec {dt}: dtype or two launches")
+        check(bool(torch.isfinite(out_t).all()), f"block_ell_rmatvec {dt}: non-finite output")
+        torch.testing.assert_close(out_t.float(), ref_t, **BLOCK_ELL_TOL)
+        torch.testing.assert_close(out_t.double(), ref64, **BLOCK_ELL_TOL)
+        errs_t += [_max_abs_err(out_t.float(), ref_t), _max_abs_err(out_t.double(), ref64)]
+        mv = sparsify.block_ell_matvec(sk, vt, flag)
+        check(bool(torch.equal(mv, block_ell_matvec(sk.vals32, sk.col_idx, vt).to(dt))),
+              f"K~ v on {dt} v differs from cast, float32 launch, cast")
+        log(f"block_ell_rmatvec {dt} n={n}: max_abs_err {errs_t[-2]!r} against its plain version, {errs_t[-1]!r} "
+            f"against the float64 scatter; two launches bitwise equal; K~ v on {dt} v: the cast path's bits")
+    sk64 = rt.build_block_ell_sketch(ot, torch.Generator(device=device).manual_seed(0), s, block=64)
+    out_64 = sparsify.block_ell_rmatvec(sk64, v, flag)
+    ref_64 = block_ell_rmatvec_ref(sk64.vals32, sk64.columns, v.reshape(-1, 64)).reshape(-1)
+    torch.testing.assert_close(out_64.float(), ref_64, **BLOCK_ELL_TOL)
+    check(bool(torch.equal(out_64, sparsify.block_ell_rmatvec(sk64, v, flag))), "block_ell_rmatvec bk=64: two launches")
+    errs_t.append(_max_abs_err(out_64.float(), ref_64))
+    log(f"block_ell_rmatvec bk=64 (any-Bk kernel): max_abs_err {errs_t[-1]!r}, two launches bitwise equal")
+    check(int(flag) == 0, "a K~^T u launch flagged an index")
+    del sk64, out_64, ref_64
+
+    # tiles 4 bytes into their storage: not on 16 bytes, so both products
+    # take the kernels for any Bk instead of the float4 ones
+    buf = torch.empty(sk.vals32.numel() + 1, dtype=torch.float32, device=device)
+    off = buf[1:].view_as(sk.vals32)
+    off.copy_(sk.vals32)
+    ref_mv = block_ell_matvec_ref(sk.vals32, sk.col_idx, v.reshape(-1, sk.block)).reshape(-1)
+    err_off = [held("block_ell_matvec on tiles at a 4-byte offset", block_ell_matvec(off, sk.col_idx, v).float(),
+                    block_ell_matvec(off, sk.col_idx, v).float(), ref_mv)]
+    out_off = block_ell_sketch_rmatvec(off, cols, v, flag)
+    again = block_ell_sketch_rmatvec(off, cols, v, flag)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(out_off, again)), "block_ell_rmatvec on tiles at a 4-byte offset: two launches differ")
+    torch.testing.assert_close(out_off.float(), ref_t, **BLOCK_ELL_TOL)
+    errs_t.append(_max_abs_err(out_off.float(), ref_t))
+    check(int(flag) == 0, "a launch on offset tiles flagged an index")
+    log(f"both products on tiles 4 bytes into their storage (any-Bk kernels): max_abs_err K~ v {err_off[0]!r}, "
+        f"K~^T u {errs_t[-1]!r}; two launches bitwise equal")
+    del buf, off, out_off, again
 
     # the reference test shapes (tests/test_kernels_cpu.py), Bk 8..32
     err_s = 0.0
@@ -1040,29 +1338,50 @@ def check_block_ell_kernel(n: int, device) -> dict:
     err_b = held("batched_block_ell_matvec", out_b, batched_block_ell_matvec(bvals, bci, bv), ref_b)
     log(f"batched_block_ell_matvec B={bsz} ({bvals.numel() * 4} bytes of tiles): max_abs_err={err_b!r}")
 
-    # times: the row layout as the solver calls it (float64 v cast, launch,
-    # float32 output promoted), the bare launch, the plain version, and the
-    # library's BSR mat-vec; the transposed layout's bare launch; the batch
+    # times: each product as the solver calls it (float64 in and out, the
+    # solver's flag) and as the transposed-layout path calls them (a cast to
+    # float32, the checked wrapper, a cast back; K~^T u on the transposed layout); the
+    # bare launches on float32 and on float64 v; the plain versions; the
+    # library's BSR mat-vec on each layout; the batch
     v32 = v.to(torch.float32)
-    flag = torch.zeros(1, dtype=torch.int32, device=device)
-    ms = time_ms(lambda: sparsify.block_ell_matvec(sk, v, flag))
+    reps = 100  # host-bound calls of some 20-80 us: more samples for a steadier median
+    ms = time_ms(lambda: sparsify.block_ell_matvec(sk, v, flag), reps=reps)
+    ms_t = time_ms(lambda: sparsify.block_ell_rmatvec(sk, v, flag), reps=reps)
+    tl_ms = time_ms(lambda: block_ell_matvec(sk.vals32, sk.col_idx, v.to(torch.float32),
+                                               bad_index=flag).to(v.dtype), reps=reps)
+    tl_ms_t = time_ms(lambda: block_ell_matvec(skt.vals32, skt.col_idx, v.to(torch.float32), row_ptr=skt.row_ptr,
+                                                 bad_index=flag).to(v.dtype), reps=reps)
     bounds = {}
     bare = {}
     kernel_ms = {}
     for name, lay in (("row", sk), ("transposed", skt)):
-        buf = torch.empty(lay.n, dtype=torch.float32, device=device)
+        for w in (v32, v):
+            buf = torch.empty(lay.n, dtype=w.dtype, device=device)
 
-        def bare_launch(lay=lay, buf=buf):
-            _launch_block_ell_matvec(lay.vals32, lay.col_idx, v32, lay.row_ptr, buf, flag,
-                                     col_blocks=lay.m // lay.block, row_blocks_per_sketch=lay.n // lay.block)
+            def bare_launch(lay=lay, buf=buf, w=w):
+                _launch_block_ell_matvec(lay.vals32, lay.col_idx, w, lay.row_ptr, buf, flag,
+                                         col_blocks=lay.m // lay.block, row_blocks_per_sketch=lay.n // lay.block)
 
-        bare[name] = time_ms(bare_launch)
-        kernel_ms[name] = device_ms(bare_launch)
-        nbytes = block_ell_bytes(lay)
-        bounds[name] = block_ell_bound(nbytes, lay.vals.shape[0], lay.max_blocks, lay.block) + (nbytes,)
+            key = name if w is v32 else f"{name} float64"
+            bare[key] = time_ms(bare_launch, reps=reps)
+            kernel_ms[key] = device_ms(bare_launch)
+        nbytes = block_ell_bytes(lay, 4)
+        bounds[name] = block_ell_bound(nbytes, int(lay.nblocks.sum()), lay.block) + (nbytes,)
+    # the entries' bounds: each product as the solver runs it, on float64
+    for name, rm in (("K~ v", False), ("K~^T u", True)):
+        nbytes = block_ell_bytes(sk, 8, rmatvec=rm)
+        bounds[name] = block_ell_bound(nbytes, int(sk.nblocks.sum()), sk.block) + (nbytes,)
+    for w in (v32, v):
+        buf_t = torch.empty(sk.m, dtype=w.dtype, device=device)
+        key = "rmatvec" if w is v32 else "rmatvec float64"
+        bare[key] = time_ms(lambda: _launch_block_ell_rmatvec(sk.vals32, cols, w, buf_t, flag), reps=reps)
+        kernel_ms[key] = device_ms(lambda: _launch_block_ell_rmatvec(sk.vals32, cols, w, buf_t, flag))
     plain_ms = time_ms(lambda: block_ell_matvec_ref(sk.vals32, sk.col_idx, v32.reshape(-1, sk.block)))
     plain_dev = device_ms(lambda: block_ell_matvec_ref(sk.vals32, sk.col_idx, v32.reshape(-1, sk.block)))
+    plain_ms_t = time_ms(lambda: block_ell_rmatvec_ref(sk.vals32, cols, v32.reshape(-1, sk.block)))
+    plain_dev_t = device_ms(lambda: block_ell_rmatvec_ref(sk.vals32, cols, v32.reshape(-1, sk.block)))
     lib_ms, lib_note = bsr_library_ms(sk, v32)
+    lib_ms_t, lib_note_t = bsr_library_ms(skt, v32)
     bbuf = torch.empty(bsz * n, dtype=torch.float32, device=device)
 
     def bare_batched():
@@ -1072,40 +1391,60 @@ def check_block_ell_kernel(n: int, device) -> dict:
     bare_b = time_ms(bare_batched)
     kernel_b = device_ms(bare_batched)
     ms_b = time_ms(lambda: batched_block_ell_matvec(bvals, bci, bv))
-    nbytes_b = 4 * (bvals.numel() + bci.numel() + 2 * bv.numel())
-    bound_b = block_ell_bound(nbytes_b, bsz * sk.vals.shape[0], sk.max_blocks, sk.block)
+    tiles_b = sum(int(k.nblocks.sum()) for k in sks)
+    nbytes_b = 4 * (tiles_b * (sk.block * sk.block + 1) + 2 * bv.numel())
+    bound_b = block_ell_bound(nbytes_b, tiles_b, sk.block)
     check(int(flag) == 0, "the timed launches flagged a column id")
-    for name in ("row", "transposed"):
+    for name, lay in (("row", sk), ("transposed", skt)):
         bound, bound_by, nbytes = bounds[name]
-        log(f"block_ell_matvec times, {name} layout: bare launch {bare[name]!r} ms (CUDA events), "
-            f"kernel {kernel_ms[name]!r} ms (profiler, device time), bound {bound!r} ms ({bound_by}: {nbytes} bytes)")
-    log(f"block_ell_matvec times, row layout (CUDA events): wrapper as the solver calls it {ms!r} ms, "
-        f"plain {plain_ms!r} ms (device time {plain_dev!r} ms, profiler), "
-        f"library (torch.sparse_bsr_tensor @ v, float32) {lib_ms!r} ms ({lib_note})")
+        log(f"block_ell_matvec times, {name} layout: bare launch {bare[name]!r} ms on float32 v, "
+            f"{bare[name + ' float64']!r} on float64 (CUDA events), kernel {kernel_ms[name]!r} / "
+            f"{kernel_ms[name + ' float64']!r} ms (profiler, device time), bound on float32 v {bound!r} ms "
+            f"({bound_by}: {nbytes} bytes of the valid tiles; the kernel also reads "
+            f"{lay.vals.shape[0] * lay.max_blocks - int(lay.nblocks.sum())} zero padding tiles)")
+    log(f"block_ell_matvec times, row layout (CUDA events): wrapper as the solver calls it {ms!r} ms, bound "
+        f"on float64 v {bounds['K~ v'][0]!r} ms ({bounds['K~ v'][1]}: {bounds['K~ v'][2]} bytes) "
+        f"(the transposed-layout path's call {tl_ms!r} ms), plain {plain_ms!r} ms (device time {plain_dev!r} ms, "
+        f"profiler), library (torch.sparse_bsr_tensor @ v, float32) {lib_ms!r} ms ({lib_note})")
+    log(f"block_ell_rmatvec times (K~^T u on the row layout's tiles, CUDA events): wrapper as the solver "
+        f"calls it {ms_t!r} ms (the transposed-layout path's: {tl_ms_t!r} ms), bare launch "
+        f"{bare['rmatvec']!r} ms on float32 u, {bare['rmatvec float64']!r} on float64, kernels "
+        f"{kernel_ms['rmatvec']!r} / {kernel_ms['rmatvec float64']!r} ms (profiler, device time: units and "
+        f"combine), bound on float64 u {bounds['K~^T u'][0]!r} ms ({bounds['K~^T u'][1]}: {bounds['K~^T u'][2]} "
+        f"bytes: the valid tiles and the column lists), plain {plain_ms_t!r} ms "
+        f"(device time {plain_dev_t!r} ms), library on the transposed tiles (torch.sparse_bsr_tensor @ u, "
+        f"float32) {lib_ms_t!r} ms ({lib_note_t})")
     log(f"batched_block_ell_matvec B={bsz} times: wrapper {ms_b!r} ms, bare launch {bare_b!r} ms, "
         f"kernel {kernel_b!r} ms (profiler), bound {bound_b[0]!r} ms ({bound_b[1]}: {nbytes_b} bytes)")
     del bvals, bci, bv, sks
-    return {
-        "name": "block_ell_matvec",
+    entry = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_ell.cu",
         "replaces": "src/repro/kernels/block_ell.py:40",
         "launches": None,  # filled in from the block-ELL path's run
-        "max_abs_err": max(errs + [err64]),
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bounds["row"][0],
-        "bound_by": bounds["row"][1],
-        "library_ms": lib_ms,
     }
+    # each product's bound on the float64 vectors that the solver passes
+    return [
+        {"name": "block_ell_matvec", **entry, "max_abs_err": max(errs + [err64]), "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": bounds["K~ v"][0], "bound_by": bounds["K~ v"][1],
+         "library_ms": lib_ms},
+        {"name": "block_ell_rmatvec", **entry, "max_abs_err": max(errs_t), "ms": ms_t,
+         "plain_ms": plain_ms_t, "bound_ms": bounds["K~^T u"][0], "bound_by": bounds["K~^T u"][1],
+         "library_ms": lib_ms_t},
+    ]
 
 
 def run_block_ell_path(n: int, device, max_iter: int = 1000):
     """``solve(problem, method="spar_sink_block_ell")`` at n: OT at
     s = 16 s0, the same seed again (bitwise equal), and UOT; the launch
-    counts are set to 0 just before each solve and read just after it (2
-    launches for each iteration the loop executed). Returns the phase's B4
-    launches and the OT sketch's seed, s and result for the float64 check."""
+    counts are set to 0 just before each solve and read just after it (one
+    ``block_ell_matvec`` and one ``block_ell_rmatvec`` launch for each
+    iteration the loop executed, and no other: ``K~^T u`` never runs on the
+    transposed layout). Then both products' device time inside one OT solve
+    (`solve_products_profile`), for this path and the transposed-layout
+    path. Returns the
+    phase's launches of each kernel and the OT sketch's seed, s and result
+    for the float64 check."""
     import torch
 
     import repro_torch as rt
@@ -1114,7 +1453,8 @@ def run_block_ell_path(n: int, device, max_iter: int = 1000):
 
     ot, uot = block_ell_problems(n, device)
     s = 16 * rt.s0(n)
-    total = 0
+    names = ("block_ell_matvec", "block_ell_rmatvec")
+    total = dict.fromkeys(names, 0)
     results = {}
     for name, problem in (("ot", ot), ("ot-repeat", ot), ("uot", uot)):
         # the sketch alone, timed apart from the solve (which builds it again)
@@ -1129,24 +1469,131 @@ def run_block_ell_path(n: int, device, max_iter: int = 1000):
         sol = rt.solve(problem, method="spar_sink_block_ell", seed=0, s=s, tol=1e-6, max_iter=max_iter)
         value = float(sol.value)  # syncs
         wall_s = time.perf_counter() - t0
-        launches = ops.LAUNCHES["block_ell_matvec"]
-        total += launches
+        counts = dict(ops.LAUNCHES)
+        for k in names:
+            total[k] += counts[k]
         n_iter = int(sol.n_iter)
         executed = min(max_iter, CHECK_EVERY * math.ceil(n_iter / CHECK_EVERY))
         row = dict(run=name, n=n, s=s, n_iter=n_iter, executed=executed, status=sol.status_label,
                    nnz=int(sol.nnz), value=value, sketch_s=sketch_s, solve_s=wall_s,
                    ms_per_executed_iteration_after_sketch=(wall_s - sketch_s) / max(executed, 1) * 1e3,
-                   peak_device_bytes=torch.cuda.max_memory_allocated(device), block_ell_launches=launches)
+                   peak_device_bytes=torch.cuda.max_memory_allocated(device),
+                   **{f"{k}_launches": counts[k] for k in names})
         log("block-ELL path " + json.dumps(row))
         check(math.isfinite(value), f"block-ELL {name} value is not finite")
         check(sol.status_label not in ("non_finite", "degenerate"), f"block-ELL {name} ended {sol.status_label}")
-        check(launches == 2 * executed,
-              f"block-ELL {name}: {launches} block_ell_matvec launches, not 2 x {executed} executed iterations")
+        check(all(counts[k] == executed for k in names) and sum(counts.values()) == 2 * executed,
+              f"block-ELL {name}: launches {counts}, not one block_ell_matvec and one block_ell_rmatvec "
+              f"for each of the {executed} executed iterations")
         results[name] = (value, n_iter)
     check(results["ot"] == results["ot-repeat"],
           f"repeated block-ELL OT run differs: {results['ot']} vs {results['ot-repeat']}")
     log("block-ELL path: the repeated OT run is bitwise identical")
+    solve_products_profile(ot, uot, s, max_iter, results)
     return total, s, results["ot"]
+
+
+def solve_products_profile(ot, uot, s: float, max_iter: int, results) -> None:
+    """The OT solve on this path and on the transposed-layout path (its
+    products patched in: a cast to float32, the checked wrapper, a cast
+    back, and ``K~^T u`` on the transposed layout's float32 tiles, made at
+    its first call in each solve, as PR 16's sketch made them when it was
+    built): 8 warm solves of each
+    timed in turns (this, that, that, this), then one of each under
+    `torch.profiler`, for the device
+    busy share (of the profiled wall and of the median wall) and each
+    product's device time a launch inside the solve, where its tiles may be
+    served from the L2. In the transposed-layout path both
+    products are the same kernel, and the launches alternate ``K~ v``,
+    ``K~^T u`` in each iteration, so they are told apart by their order.
+    Then the OT and UOT values and iterations of that path against this
+    path's (``results``), held at the kernels' float32 tolerance."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch as rt
+    from repro_torch.core import sparsify
+    from repro_torch.kernels import ops
+
+    def tl_matvec(sk, v, bad_index=None):
+        return ops.block_ell_matvec(sk.vals32, sk.col_idx, v, row_ptr=sk.row_ptr, bad_index=bad_index).to(v.dtype)
+
+    made = {}  # id of a transposed layout -> (it, its float32 copy), made once a solve
+
+    def tl_rmatvec(sk, u, bad_index=None):
+        if id(sk.transposed) not in made:
+            made[id(sk.transposed)] = (sk.transposed, transposed32(sk))
+        return tl_matvec(made[id(sk.transposed)][1], u, bad_index)
+
+    def solve(problem=ot):
+        return rt.solve(problem, method="spar_sink_block_ell", seed=0, s=s, tol=1e-6, max_iter=max_iter)
+
+    current = (sparsify.block_ell_matvec, sparsify.block_ell_rmatvec)
+    paths = {"row layout": current, "transposed layout": (tl_matvec, tl_rmatvec)}
+
+    def timed_solve(label):
+        sparsify.block_ell_matvec, sparsify.block_ell_rmatvec = paths[label]
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(solve().value)
+            return (time.perf_counter() - t0) * 1e3
+        finally:
+            sparsify.block_ell_matvec, sparsify.block_ell_rmatvec = current
+            made.clear()
+
+    walls = {label: [] for label in paths}
+    for label in paths:
+        timed_solve(label)  # warm
+    for _ in range(4):  # in turns: this, that, that, this
+        for label in ("row layout", "transposed layout", "transposed layout", "row layout"):
+            walls[label].append(timed_solve(label))
+    log("block-ELL OT solve wall ms in turns (8 solves each, host clock around a synced solve): "
+        + "; ".join(f"{label}: median {statistics.median(w)!r}, all {w!r}" for label, w in walls.items()))
+    for label, products in paths.items():
+        sparsify.block_ell_matvec, sparsify.block_ell_rmatvec = products
+        try:
+            sol = solve()
+            value = float(sol.value)
+            wall_ms = statistics.median(walls[label])
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                float(solve().value)
+                torch.cuda.synchronize()
+                prof_wall_us = (time.perf_counter() - t0) * 1e6
+            uot_sol = solve(uot)
+            uot_value = float(uot_sol.value)
+        finally:
+            sparsify.block_ell_matvec, sparsify.block_ell_rmatvec = current
+            made.clear()
+        kernels = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name) for e in prof.events()
+                         if e.device_type == DeviceType.CUDA)
+        busy = sum(k[1] for k in kernels)
+        mv = [k[1] for k in kernels if "block_ell_bk128" in k[2]]
+        rmv = [k[1] for k in kernels if "block_ell_rmatvec" in k[2]]  # two kernels a launch
+        rmv_launches = len(rmv) // 2
+        if label == "transposed layout":  # one kernel, launched K~ v, K~^T u, K~ v, ...
+            mv, rmv = mv[0::2], mv[1::2]
+            rmv_launches = len(rmv)
+        per = {"K~ v": (sum(mv) / max(len(mv), 1), len(mv)),
+               "K~^T u": (sum(rmv) / max(rmv_launches, 1), rmv_launches)}
+        other = busy - sum(mv) - sum(rmv)
+        log(f"block-ELL OT solve, {label}: {int(sol.n_iter)} iterations, value {value!r}, median wall {wall_ms!r} ms "
+            f"(under the profiler {prof_wall_us / 1e3!r} ms), kernels {busy / 1e3!r} ms, device busy share "
+            f"{busy / prof_wall_us!r} of the profiled wall, {busy / 1e3 / wall_ms!r} of the median wall, "
+            f"{len(kernels)} kernels; device time a launch inside the solve (profiler): "
+            + ", ".join(f"{k} {us!r} us over {cnt} launches" for k, (us, cnt) in per.items())
+            + f"; every other kernel {other / 1e3!r} ms")
+        if label != "row layout":
+            for name, (v_old, it_old) in (("ot", (value, int(sol.n_iter))), ("uot", (uot_value, int(uot_sol.n_iter)))):
+                v_new, it_new = results[name]
+                rel = abs(v_new - v_old) / abs(v_old)
+                log(f"block-ELL {name.upper()}: the transposed-layout path {v_old!r} ({it_old} it) against "
+                    f"the row-layout path's {v_new!r} ({it_new} it): relative difference {rel!r}")
+                check(rel <= BLOCK_ELL_TOL["rtol"],
+                      f"block-ELL {name} value moved by {rel!r} against the transposed-layout path")
 
 
 def check_block_ell_accuracy(n: int, device, v_log: float, s: float, ot_result, seeds: int = 4) -> None:
@@ -1195,16 +1642,20 @@ def check_block_ell_accuracy(n: int, device, v_log: float, s: float, ot_result, 
 
 
 def check_lru_scan_kernel(device) -> dict:
-    """B5 against its plain version at the prefill shape and the reference
-    test shapes (a in U(0.7, 0.999), b = 0.1 N(0, 1)); two launches bitwise
-    equal; times of the wrapper, the bare launch and the plain version at
-    the prefill shape."""
+    """B5 against its plain version at every ``LRU_SHAPES`` entry (a in
+    U(0.7, 0.999), b = 0.1 N(0, 1)), with the library's chunk length for
+    each; two launches bitwise equal; at (2, 512, 256) views that start 4
+    bytes into their storage give the aligned launch's bits; times of the
+    wrapper, the bare launch and the plain version at the prefill shape, and
+    the bare launch at the training shape."""
     import torch
 
+    from repro_torch.kernels.library import load
     from repro_torch.kernels.lru_scan import _launch_lru_scan_fwd
     from repro_torch.kernels.ops import lru_scan
     from repro_torch.kernels.ref import lru_scan_ref
 
+    log_ptxas("lru_")
     errs = []
     for shape in LRU_SHAPES:
         gen = torch.Generator(device=device).manual_seed(sum(shape))
@@ -1218,10 +1669,28 @@ def check_lru_scan_kernel(device) -> dict:
         check(bool(torch.isfinite(out).all()), f"lru_scan {shape}: non-finite output")
         torch.testing.assert_close(out, ref, **LRU_TOL)
         errs.append(_max_abs_err(out, ref))
-        log(f"lru_scan {shape}: max_abs_err={errs[-1]!r} (max |h| {float(ref.abs().max())!r}), "
-            f"two launches bitwise equal")
+        chunk = load().lru_scan_chunk(*shape)
+        log(f"lru_scan {shape}: chunks of {chunk} ({-(-shape[1] // chunk)} of them): max_abs_err={errs[-1]!r} "
+            f"(max |h| {float(ref.abs().max())!r}), two launches bitwise equal")
         if shape == LRU_SHAPES[0]:
             timed = a, b
+        elif shape == (1, TRAIN_SEQ, 2560):
+            train_bare_ms = time_ms(lambda: _launch_lru_scan_fwd(a, b, out))
+            log(f"lru_scan bare launch at {shape}: {train_bare_ms!r} ms, bound {3 * a.numel() * 4 / HBM_BYTES_PER_S * 1e3!r} "
+                f"ms (bytes)")
+        elif shape == (2, 512, 256):
+            # contiguous views that start one float into their storage: W is
+            # a multiple of 4 but the rows are not on 16 bytes, so the kernel
+            # takes its 4-byte copies, with the same bits as the 16-byte ones
+            views = []
+            for x in (a, b):
+                buf = torch.empty(x.numel() + 1, device=device)
+                views.append(buf[1:].view(shape))
+                views[-1].copy_(x)
+            out_off = lru_scan(*views)
+            torch.cuda.synchronize()
+            check(bool(torch.equal(out_off, out)), f"lru_scan {shape} on views at a 4-byte offset differs")
+            log(f"lru_scan {shape} on views at a 4-byte offset (4-byte copies): bitwise equal to the aligned launch")
     a, b = timed
     h = torch.empty_like(a)
     ms = time_ms(lambda: lru_scan(a, b))
@@ -1656,7 +2125,18 @@ def main() -> int:
 
     args = sys.argv[1:]
     if "--compare-with" in args:
-        compare_sources(Path(args[args.index("--compare-with") + 1]).resolve(), device)
+        # each other source is compared with the current one of its kind
+        for other in args[args.index("--compare-with") + 1:]:
+            path = Path(other).resolve()
+            text = path.read_text()
+            if "online_matvec_launch" in text:
+                compare_sources(path, device)
+            elif "block_ell_matvec_launch" in text:
+                compare_block_ell(path, device)
+            elif "lru_scan_fwd_launch" in text:
+                compare_lru_scan(path, device)
+            else:
+                check(False, f"--compare-with {other}: not a fused_sinkhorn, block_ell or lru_scan source")
         log(card)
         return 0
 
@@ -1678,8 +2158,11 @@ def main() -> int:
     del x, u, v
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    entries.append(check_block_ell_kernel(8192, device))
-    entries[-1]["launches"], s_be, ot_be = run_block_ell_path(8192, device)
+    block_ell_entries = check_block_ell_kernel(8192, device)
+    block_ell_launches, s_be, ot_be = run_block_ell_path(8192, device)
+    for entry in block_ell_entries:
+        entry["launches"] = block_ell_launches[entry["name"]]
+    entries += block_ell_entries
     check_block_ell_accuracy(8192, device, v_log, s_be, ot_be)
     log(f"block-ELL phase {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()

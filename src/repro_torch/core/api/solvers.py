@@ -344,11 +344,12 @@ def _solve_spar_sink_mf(
 def _block_ell_solution(problem: OTProblem, sk: sparsify.BlockEllKernel, tol: float, max_iter: int) -> Solution:
     """Scaling-domain Sinkhorn on a block-ELL sketch, and its `Solution`.
 
-    On the card both mat-vecs launch the block-ELL kernel (``K~^T u`` on the
-    transposed layout); the kernel flags a column id out of range, and the
-    flag is read once, after the loop. The objective is taken on the
-    densified sketch, which is then dropped: the `Solution` keeps the tiles
-    and rebuilds the dense plan on first access.
+    On the card the two mat-vecs launch the two block-ELL kernels, both on
+    the row layout's float32 tiles (``K~^T u`` through the sketch's column
+    lists), in the loop's float64 or float32; the kernels flag an index out
+    of range, and the flag is read once, after the loop. The objective is
+    taken on the densified sketch, which is then dropped: the `Solution`
+    keeps the tiles and rebuilds the dense plan on first access.
     """
     bad = torch.zeros(1, dtype=torch.int32, device=problem.device) if sk.vals.is_cuda else None
     res = generic_scaling_loop(

@@ -11,15 +11,17 @@ The ported parts of ``repro.core.sparsify``:
   run on;
 * the tile-granular sketch in block-ELL layout (`BlockEllKernel`): Poisson
   sampling of (Bk x Bk) tiles, stored with its transposed layout, and the
-  block-ELL mat-vecs.
+  block-ELL mat-vecs (on the card both read the row layout's tiles: ``K~^T
+  u`` through the sketch's column lists).
 
 Every reduction here is over **sorted** segments (rows, or columns through
 the ``csort`` permutation) and goes through `torch.segment_reduce` with
 offsets, never through ``index_add_``/``scatter_add_``: on CUDA those sum
 with atomics in an order that changes from run to run, and the same inputs
 must give the same result. The one ``index_add_`` (`block_ell_rmatvec`)
-runs on CPU tensors only, where it is sequential; on CUDA ``K~^T u`` is the
-block-ELL kernel on the transposed layout.
+runs on CPU tensors only, where it is sequential; on CUDA ``K~^T u`` is a
+kernel that adds each column-block's tiles in the same order, without
+atomics.
 """
 from __future__ import annotations
 
@@ -29,11 +31,13 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core.sinkhorn import _masked_log
+from repro_torch.kernels.block_ell import BlockEllColumns, column_lists
 
 __all__ = [
     "BlockEllKernel",
     "LogSparseKernelCOO",
     "SparseKernelCOO",
+    "block_ell_columns",
     "block_ell_matvec",
     "block_ell_rmatvec",
     "block_ell_to_dense",
@@ -381,11 +385,15 @@ class BlockEllKernel(NamedTuple):
     #: (n/Bk + 1,) int32 ELL-row offsets of the row-blocks; None: one ELL row each
     row_ptr: torch.Tensor | None = None
     #: the same sketch transposed (``K~^T`` in block-ELL layout, m/Bk
-    #: row-blocks), which ``K~^T u`` runs on with the CUDA kernel
+    #: row-blocks), for the CPU path, interop and the layout checks; no
+    #: kernel reads it, so it gets no ``vals32`` or ``columns``
     transposed: "BlockEllKernel | None" = None
-    #: float32 copy of ``vals`` that the CUDA kernel reads, made once when a
+    #: float32 copy of ``vals`` that the CUDA kernels read, made once when a
     #: CUDA sketch is built (``None`` on the CPU)
     vals32: torch.Tensor | None = None
+    #: the column lists (`repro_torch.kernels.block_ell.column_lists`) that
+    #: ``K~^T u`` walks on CUDA, made with ``vals32`` (``None`` on the CPU)
+    columns: BlockEllColumns | None = None
 
     @property
     def block(self) -> int:
@@ -477,11 +485,29 @@ def _ell_from_mask(mask, probs, tiles, scale, width: int, *, split: bool):
     return vals, ci.to(torch.int32), nblocks, row_ptr, kept
 
 
-def _with_float32(sk: BlockEllKernel) -> BlockEllKernel:
-    """A CUDA sketch gets the float32 tiles its kernel reads, once."""
+def _for_cuda(sk: BlockEllKernel) -> BlockEllKernel:
+    """A CUDA sketch gets, once, what its kernels read: the float32 tiles,
+    int32 column ids and the column lists of ``K~^T u``; and the checks that
+    depend on the sketch alone run here, once, not at each launch: every
+    valid slot's column id lies in ``[0, m/Bk)`` and ``row_ptr`` is a
+    non-decreasing cover of the ELL rows (else `IndexError`). CPU sketches
+    come back as they are."""
     if sk.vals.device.type != "cuda":
         return sk
-    return sk._replace(vals32=sk.vals.to(torch.float32).contiguous())
+    ell_rows = sk.vals.shape[0]
+    if sk.row_ptr is not None:
+        rp = sk.row_ptr.long()
+        if not (rp.shape[0] == sk.n // sk.block + 1 and int(rp[0]) == 0 and int(rp[-1]) == ell_rows
+                and bool((torch.diff(rp) >= 0).all())):
+            raise IndexError(f"row_ptr is not a non-decreasing cover of the {ell_rows} ELL rows")
+    sk = sk._replace(col_idx=sk.col_idx.to(torch.int32).contiguous())
+    return sk._replace(vals32=sk.vals.to(torch.float32).contiguous(), columns=block_ell_columns(sk))
+
+
+def block_ell_columns(sk: BlockEllKernel) -> BlockEllColumns:
+    """The column lists of the layout ``sk`` that ``K~^T u`` walks on CUDA
+    (`repro_torch.kernels.block_ell.column_lists`), on its device."""
+    return column_lists(sk.col_idx, sk.nblocks, sk.row_blocks_of_ell_rows(), sk.m // sk.block)
 
 
 def sparsify_block_ell_from_uniforms(
@@ -517,8 +543,8 @@ def sparsify_block_ell_from_uniforms(
     vals_t, ci_t, nb_t, ptr_t, _ = _ell_from_mask(
         kept.T, tile_probs.T, tiles.permute(1, 0, 3, 2), scale.T, max_blocks, split=True
     )
-    transposed = _with_float32(BlockEllKernel(vals_t, ci_t, nb_t, m, n, row_ptr=ptr_t))
-    return _with_float32(BlockEllKernel(vals, ci, nb, n, m, transposed=transposed))
+    transposed = BlockEllKernel(vals_t, ci_t, nb_t, m, n, row_ptr=ptr_t)
+    return _for_cuda(BlockEllKernel(vals, ci, nb, n, m, transposed=transposed))
 
 
 def sparsify_block_ell(
@@ -545,13 +571,15 @@ def block_ell_matvec(sk: BlockEllKernel, v: torch.Tensor, bad_index: torch.Tenso
     CPU sketches run the reference's gather + einsum in ``v``'s dtype (and
     a sorted segment sum over the ELL rows of a row-block, where it has
     several). CUDA sketches launch the block-ELL kernel on the float32 tiles
-    and promote its float32 output to ``v``'s dtype; ``bad_index`` is passed
-    on to the kernel wrapper (`repro_torch.kernels.ops.block_ell_matvec`).
+    (`repro_torch.kernels.ops.block_ell_sketch_matvec`), which reads ``v``
+    and writes the output in ``v``'s dtype and sums in float32; the kernel
+    sets ``bad_index`` (a zeroed (1,) int32 tensor) on an index out of
+    range, or, without one, the call raises `IndexError`.
     """
     if sk.vals.device.type == "cuda":
-        from repro_torch.kernels.ops import block_ell_matvec as kernel
+        from repro_torch.kernels.ops import block_ell_sketch_matvec
 
-        return kernel(sk.vals32, sk.col_idx, v, row_ptr=sk.row_ptr, bad_index=bad_index).to(v.dtype)
+        return block_ell_sketch_matvec(_cuda_part(sk, "vals32"), sk.col_idx, v, sk.row_ptr, bad_index)
     bk = sk.block
     gathered = v.reshape(sk.m // bk, bk)[sk.col_idx.long()]  # (ell_rows, max_blocks, Bk)
     out = torch.einsum("rkij,rkj->ri", sk.vals, gathered)
@@ -560,19 +588,29 @@ def block_ell_matvec(sk: BlockEllKernel, v: torch.Tensor, bad_index: torch.Tenso
     return out.reshape(sk.n)
 
 
+def _cuda_part(sk: BlockEllKernel, name: str):
+    """The CUDA-only field ``name`` of a sketch, which `sparsify_block_ell`
+    and `repro_torch.interop.block_ell_sketch_from_numpy` make."""
+    part = getattr(sk, name)
+    if part is None:
+        raise ValueError(f"this CUDA sketch has no {name}: build it with sparsify_block_ell[_from_uniforms] "
+                         "or interop.block_ell_sketch_from_numpy")
+    return part
+
+
 def block_ell_rmatvec(sk: BlockEllKernel, u: torch.Tensor, bad_index: torch.Tensor | None = None) -> torch.Tensor:
-    """``K~^T u``. CUDA sketches run `block_ell_matvec` on the transposed
-    layout (the kernel sums each output in one fixed order: no atomics, no
-    scatter) and raise without one. CPU sketches run the reference's
-    per-tile ``(Bk,) @ (Bk x Bk)`` and add the results into column blocks in
-    slot order (a sequential ``index_add_``)."""
+    """``K~^T u``: the reference's per-tile ``(Bk,) @ (Bk x Bk)``, added
+    into column blocks in the order of row-block, then slot. CPU sketches
+    run it in ``u``'s dtype with a sequential ``index_add_``. CUDA sketches
+    launch the kernel that reads the same float32 tiles as `block_ell_matvec`
+    through the sketch's column lists and adds each column-block's tiles in
+    that order, in float32, without atomics
+    (`repro_torch.kernels.ops.block_ell_sketch_rmatvec`); dtypes and
+    ``bad_index`` as `block_ell_matvec`."""
     if sk.vals.device.type == "cuda":
-        if sk.transposed is None:
-            raise ValueError(
-                "K~^T u on CUDA runs the block-ELL kernel on the transposed "
-                "layout, and this sketch carries none"
-            )
-        return block_ell_matvec(sk.transposed, u, bad_index)
+        from repro_torch.kernels.ops import block_ell_sketch_rmatvec
+
+        return block_ell_sketch_rmatvec(_cuda_part(sk, "vals32"), _cuda_part(sk, "columns"), u, bad_index)
     bk = sk.block
     ublocks = u.reshape(sk.n // bk, bk)[sk.row_blocks_of_ell_rows()]
     contrib = torch.einsum("rkij,ri->rkj", sk.vals, ublocks)

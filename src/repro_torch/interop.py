@@ -18,7 +18,7 @@ from repro_torch.core.sparsify import (
     BlockEllKernel,
     LogSparseKernelCOO,
     SparseKernelCOO,
-    _with_float32,
+    _for_cuda,
 )
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.lm import init_params
@@ -126,7 +126,8 @@ def block_ell_sketch_from_numpy(
     the ``*_t`` transposed one). The transposed layout must hold exactly
     the row layout's tiles (it does unless a column-block overflowed the
     reference's ``max_blocks``), else `ValueError`. Column ids become int32;
-    on CUDA the float32 tiles of the kernel are made here."""
+    on CUDA the row layout's float32 tiles and column lists, which the
+    kernels read, are made, and the sketch is checked, here."""
     if _valid_pairs(vals, col_idx, nblocks) != {
         (r, c) for c, r in _valid_pairs(vals_t, col_idx_t, nblocks_t)
     }:
@@ -137,14 +138,14 @@ def block_ell_sketch_from_numpy(
     dev = resolve_device(device)
 
     def layout(v, ci, nb, rows, cols, transposed=None):
-        return _with_float32(BlockEllKernel(
+        return BlockEllKernel(
             torch.tensor(np.asarray(v), device=dev),
             torch.tensor(np.asarray(ci, np.int32), device=dev),
             torch.tensor(np.asarray(nb, np.int32), device=dev),
             int(rows), int(cols), transposed=transposed,
-        ))
+        )
 
-    return layout(vals, col_idx, nblocks, n, m, layout(vals_t, col_idx_t, nblocks_t, m, n))
+    return _for_cuda(layout(vals, col_idx, nblocks, n, m, layout(vals_t, col_idx_t, nblocks_t, m, n)))
 
 
 def lm_params_from_numpy(tree, cfg, device=None):

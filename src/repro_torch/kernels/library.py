@@ -9,9 +9,10 @@ hash of every source and the flags, so an edited source is rebuilt and an
 unchanged tree is loaded as it is.
 
 Every ``<name>_launch`` function of the library launches one kernel on the
-stream it is given (its last argument; the online ones, over P > 1 column
-slices, a second that combines the slices), allocates nothing, and returns
-its ``cudaError_t``; `launch` passes PyTorch's current stream, raises on a code
+stream it is given (its last argument; the online ones over P > 1 column
+slices and ``block_ell_rmatvec`` a second that combines the partials;
+``lru_scan_fwd`` a memset of its flags first), allocates nothing, and returns its
+``cudaError_t``; `launch` passes PyTorch's current stream, raises on a code
 other than 0 and counts the launch in `LAUNCHES`.
 """
 from __future__ import annotations
@@ -49,10 +50,13 @@ SIGNATURES = {
     # x, y, g, n, m, d, eps, wfr, eta, slices, part, out, stream
     "online_lse": (_P, _P, _P, _I64, _I64, _INT, _F32, _INT, _F32, _INT, _P, _P, _P),
     # vals, col_idx, v, row_ptr, row_blocks, ell_rows, max_blocks, bk, col_blocks,
-    # row_blocks_per_sketch, out, bad_index, stream
-    "block_ell_matvec": (_P, _P, _P, _P, _I64, _I64, _I64, _INT, _I64, _I64, _P, _P, _P),
-    # a, b, h, batch, seq, width, stream
-    "lru_scan_fwd": (_P, _P, _P, _I64, _I64, _I64, _P),
+    # row_blocks_per_sketch, f64, out, bad_index, stream
+    "block_ell_matvec": (_P, _P, _P, _P, _I64, _I64, _I64, _INT, _I64, _I64, _INT, _P, _P, _P),
+    # vals, tile, urow, col_ptr, col_unit_ptr, u, units, tiles, u_blocks, bk, col_blocks,
+    # f64, part, out, bad_index, stream
+    "block_ell_rmatvec": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _I64, _INT, _P, _P, _P, _P),
+    # a, b, h, batch, seq, width, chunk, part, stream
+    "lru_scan_fwd": (_P, _P, _P, _I64, _I64, _I64, _I64, _P, _P),
     # a, h, g, da (or null), db, batch, seq, width, stream
     "lru_scan_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
 }
@@ -139,17 +143,27 @@ def load() -> ctypes.CDLL:
             # n, m, d, wfr, lse -> the column slices of an online launch
             lib.online_slices.argtypes = [_I64, _I64, _INT, _INT, _INT]
             lib.online_slices.restype = ctypes.c_int
+            # batch, seq, width -> the chunk length of a forward LRU scan
+            lib.lru_scan_chunk.argtypes = [_I64, _I64, _I64]
+            lib.lru_scan_chunk.restype = _I64
             _lib = lib
         return _lib
 
 
-def launch(name: str, device, *args) -> None:
+def launch(name: str, device: torch.device, *args) -> None:
     """Call ``<name>_launch(*args, stream)`` on ``device`` with PyTorch's
     current stream there; raise if it returns a CUDA error, else count one
-    launch of ``name``."""
+    launch of ``name``. On the current device it enters no device context,
+    whose switch and restore cost several microseconds of host time a
+    launch (``chip_smoke.py --compare-with`` times both)."""
     lib = load()
-    with torch.cuda.device(device):
-        code = getattr(lib, f"{name}_launch")(*args, torch.cuda.current_stream(device).cuda_stream)
+    fn = getattr(lib, f"{name}_launch")
+    current = torch.cuda.current_device()
+    if device.index is None or device.index == current:
+        code = fn(*args, torch.cuda.current_stream(current).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if code != 0:
         msg = lib.cuda_error_string(code).decode()
         raise RuntimeError(f"{name} launch failed: {msg} (cudaError {code})")

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.sinkhorn import SinkhornResult, generic_scaling_loop
-from repro_torch.kernels.block_ell import _launch_block_ell_matvec
+from repro_torch.kernels.block_ell import BlockEllColumns, _launch_block_ell_matvec, _launch_block_ell_rmatvec
 from repro_torch.kernels.fused_sinkhorn import _launch_online_lse, _launch_online_matvec
 from repro_torch.kernels.gather_kernel import _launch_gathered_kernel
 from repro_torch.kernels.library import COSTS, LAUNCHES, reset_launch_counts
@@ -33,6 +33,8 @@ __all__ = [
     "LAUNCHES",
     "batched_block_ell_matvec",
     "block_ell_matvec",
+    "block_ell_sketch_matvec",
+    "block_ell_sketch_rmatvec",
     "fused_sinkhorn_solve",
     "gathered_kernel",
     "lru_scan",
@@ -305,6 +307,51 @@ def batched_block_ell_matvec(
                          f"(B, nrb, maxb), (B, ncb * Bk); got {tuple(vals.shape)}, "
                          f"{tuple(col_idx.shape)}, {tuple(v.shape)}")
     return _block_ell("batched_block_ell_matvec", vals, col_idx, v, None, bad_index)
+
+
+def _path_dtype(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in a type the block-ELL kernels read and write (float32 or
+    float64; another float type as float32), contiguous."""
+    if t.dtype not in (torch.float32, torch.float64):
+        t = t.to(torch.float32)
+    return t.contiguous()
+
+
+def block_ell_sketch_matvec(vals32: torch.Tensor, col_idx: torch.Tensor, v: torch.Tensor,
+                            row_ptr: torch.Tensor | None, bad_index: torch.Tensor | None) -> torch.Tensor:
+    """``K~ v`` as the block-ELL solver calls it on a CUDA sketch: one
+    counted launch and nothing else. It takes what was made and checked
+    once, when the sketch was built (`repro_torch.core.sparsify`: the
+    float32 tiles, int32 column ids in range, the ``row_ptr`` cover), and
+    checks none of it again. ``v`` float32 or float64 is read as it is, and the output comes
+    in its dtype (the bits of a cast to float32, the float32 kernel and a
+    cast back); ``bad_index`` as in `block_ell_matvec`."""
+    vt = _path_dtype(v)
+    bk = vals32.shape[-1]
+    rows = vals32.shape[0] if row_ptr is None else row_ptr.shape[0] - 1
+    out = torch.empty(rows * bk, dtype=vt.dtype, device=vt.device)
+    flag = torch.zeros(1, dtype=torch.int32, device=vt.device) if bad_index is None else bad_index
+    _launch_block_ell_matvec(vals32, col_idx, vt, row_ptr, out, flag, col_blocks=vt.shape[0] // bk,
+                             row_blocks_per_sketch=max(rows, 1))
+    if bad_index is None and bool(flag):  # reading the flag waits for the launch
+        raise IndexError("block_ell_sketch_matvec: an index of the sketch out of range")
+    return out if out.dtype == v.dtype else out.to(v.dtype)
+
+
+def block_ell_sketch_rmatvec(vals32: torch.Tensor, columns: BlockEllColumns, u: torch.Tensor,
+                             bad_index: torch.Tensor | None) -> torch.Tensor:
+    """``K~^T u`` as the block-ELL solver calls it on a CUDA sketch: one
+    counted launch of the kernel that reads the row layout's float32 tiles
+    through their column lists (`repro_torch.kernels.block_ell.column_lists`,
+    made and checked with the sketch), with no check of its own; types and
+    ``bad_index`` as `block_ell_sketch_matvec`. Returns ``(ncb * Bk,)``."""
+    ut = _path_dtype(u)
+    out = torch.empty((columns.col_ptr.shape[0] - 1) * vals32.shape[-1], dtype=ut.dtype, device=ut.device)
+    flag = torch.zeros(1, dtype=torch.int32, device=ut.device) if bad_index is None else bad_index
+    _launch_block_ell_rmatvec(vals32, columns, ut, out, flag)
+    if bad_index is None and bool(flag):
+        raise IndexError("block_ell_sketch_rmatvec: an index of the column lists out of range")
+    return out if out.dtype == u.dtype else out.to(u.dtype)
 
 
 class _LruScan(torch.autograd.Function):

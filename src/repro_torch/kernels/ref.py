@@ -13,6 +13,7 @@ from repro_torch.core.geometry import wfr_from_dist
 
 __all__ = [
     "block_ell_matvec_ref",
+    "block_ell_rmatvec_ref",
     "gathered_kernel_ref",
     "linear_scan",
     "lru_scan_bwd_ref",
@@ -139,6 +140,20 @@ def block_ell_matvec_ref(
     if row_ptr is None:
         return out
     return torch.segment_reduce(out, "sum", offsets=row_ptr.long(), axis=0, initial=0.0)
+
+
+def block_ell_rmatvec_ref(vals: torch.Tensor, columns, u: torch.Tensor) -> torch.Tensor:
+    """``K~^T u`` over the row layout's tiles ``(ell_rows, maxb, Bk, Bk)``
+    through its column lists (`repro_torch.kernels.block_ell.BlockEllColumns`),
+    with ``u`` ``(nrb, Bk)`` -> ``(ncb, Bk)``: ``out[c] = sum u[urow] @
+    vals[tile]`` over column-block c's listed tiles, a gather, an einsum and
+    a sorted segment sum in float32 whatever the inputs' dtype (as the
+    kernel computes); a column-block with no tile comes out 0."""
+    bk = vals.shape[-1]
+    tiles = vals.reshape(-1, bk, bk)[columns.tile.long()].to(torch.float32)  # (T, Bk, Bk)
+    ublocks = u.to(torch.float32)[columns.urow.long()]  # (T, Bk)
+    contrib = torch.einsum("tij,ti->tj", tiles, ublocks)
+    return torch.segment_reduce(contrib, "sum", offsets=columns.col_ptr.long(), axis=0, initial=0.0)
 
 
 def _combine(e1, e2):

@@ -12,8 +12,14 @@ the JAX package on the same numpy inputs.
   in another order).
 * The solve on the reference's sketch: the same ``n_iter`` and ``status``,
   values to rtol 1e-9 (rounding amplified over some hundred iterations).
+* ``K~^T u`` on the row layout's tiles (what the card runs): the column
+  lists cover every valid tile once, in the reference's scatter order; the
+  plain version `block_ell_rmatvec_ref` and an emulation of the kernel's
+  work units and fixed-order combine in float32 torch, against the float64
+  CPU path and the reference's scatter at the kernel tolerance above.
 """
 import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -46,7 +52,8 @@ from repro_torch.core.api import Geometry, OTProblem, PointCloudGeometry, UOTPro
 from repro_torch.core.api import solvers as tsolvers
 from repro_torch.core.sinkhorn import CHECK_EVERY
 from repro_torch.core.spar_sink import default_max_blocks
-from repro_torch.kernels import batched_block_ell_matvec, block_ell_matvec, ops, ref
+from repro_torch.kernels import batched_block_ell_matvec, block_ell_matvec, library, ops, ref
+from repro_torch.kernels.block_ell import UNIT_TILES, column_lists
 
 KERNEL_TOL = dict(rtol=2e-4, atol=1e-6)
 SHAPES = [(8, 2, 4), (16, 4, 8), (32, 3, 4)]  # (bk, maxb, nrb), tests/test_kernels_cpu.py
@@ -436,3 +443,171 @@ def test_registry_lists_block_ell_and_rejects_bad_options():
     big = OTProblem(PointCloudGeometry(x, dense_guard=128, device="cpu"), np.full(256, 1 / 256), np.full(256, 1 / 256), EPS)
     with pytest.raises(ValueError, match="dense_guard=128"):
         solve(big, method="spar_sink_block_ell", s=100.0, seed=0, block=32)
+
+
+# --------------------------------------------------------------------------
+# K~^T u on the row layout's tiles: column lists, plain version, the kernel's
+# arithmetic
+# --------------------------------------------------------------------------
+
+
+def _listed(cols):
+    return [cols.tile[int(cols.col_ptr[c]):int(cols.col_ptr[c + 1])].tolist()
+            for c in range(cols.col_ptr.shape[0] - 1)]
+
+
+@pytest.mark.parametrize("kind,bk,maxb", [("ot", 16, 3), ("uot", 16, 3), ("tied", 16, 3), ("ot", 32, 4)])
+def test_column_lists_cover_every_valid_tile_once(kind, bk, maxb):
+    """The lists of a sketch built from the reference's uniforms (and of its
+    transposed layout, whose row-blocks span several ELL rows): every valid
+    slot exactly once, under its column id, in the order of row-block then
+    slot, with the row-block of its ELL row, cut into units of UNIT_TILES."""
+    n, s = 128, 2000.0
+    _, K, tile_p, uniforms = _reference_sketch_inputs(kind, n, bk)
+    sk = tsp.sparsify_block_ell_from_uniforms(*_t(uniforms, K, tile_p), s, bk, maxb)
+    for lay in (sk, sk.transposed):
+        cols = tsp.block_ell_columns(lay)
+        assert all(t.dtype == torch.int32 for t in (cols.tile, cols.urow, cols.col_ptr, cols.col_unit_ptr))
+        valid = (torch.arange(lay.max_blocks)[None, :] < lay.nblocks[:, None]).reshape(-1)
+        want = torch.nonzero(valid).reshape(-1)
+        assert sorted(cols.tile.tolist()) == want.tolist()  # each valid slot once
+        ids = lay.col_idx.reshape(-1)
+        row_of = lay.row_blocks_of_ell_rows()
+        for c, tiles in enumerate(_listed(cols)):
+            assert all(int(ids[t]) == c for t in tiles)
+            assert tiles == sorted(tiles)  # ELL rows follow their row-blocks: row-block, then slot
+        assert torch.equal(cols.urow.long(), row_of[cols.tile.long() // lay.max_blocks])
+        counts = torch.diff(cols.col_ptr.long())
+        assert torch.equal(torch.diff(cols.col_unit_ptr.long()), -(-counts // UNIT_TILES))
+        assert cols.units == int(cols.col_unit_ptr[-1])
+    if kind != "tied":  # rank-1 probabilities force every row-block's heaviest tile into one column-block
+        assert int(torch.diff(tsp.block_ell_columns(sk).col_unit_ptr.long()).max()) > 1
+
+
+def test_column_lists_refuse_a_column_id_out_of_range():
+    vals, col_idx, _ = _t(*_random_layout(8, 2, 4, seed=1))
+    nb = torch.full((4,), 2, dtype=torch.int32)
+    for bad in (4, -1):
+        ci = col_idx.clone()
+        ci[1, 1] = bad
+        with pytest.raises(IndexError, match="out of range"):
+            column_lists(ci, nb, torch.arange(4), 4)
+    ci = col_idx.clone()
+    ci[1, 1] = 9  # a padded slot's id is never read
+    column_lists(ci, torch.tensor([2, 1, 2, 2], dtype=torch.int32), torch.arange(4), 4)
+
+
+@pytest.mark.parametrize("kind,bk,maxb", [("ot", 16, 3), ("uot", 16, 3), ("tied", 16, 3), ("ot", 32, 4)])
+def test_block_ell_rmatvec_ref_matches_cpu_path_and_reference(kind, bk, maxb):
+    """The plain version over the column lists against the port's float64
+    CPU path on the port's sketch, and against the reference's scatter
+    (`repro.core.sparsify.block_ell_rmatvec`) on the reference's own sketch,
+    fed through interop (where no column-block overflows, the reference
+    pair holds every tile: ("ot", 32, 4))."""
+    n, s = 128, 2000.0
+    key, K, tile_p, uniforms = _reference_sketch_inputs(kind, n, bk)
+    u = np.random.default_rng(5).uniform(size=n)
+    ut = torch.as_tensor(u)
+    sk = tsp.sparsify_block_ell_from_uniforms(*_t(uniforms, K, tile_p), s, bk, maxb)
+    got = ref.block_ell_rmatvec_ref(sk.vals, tsp.block_ell_columns(sk), ut.reshape(-1, bk)).reshape(-1)
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    torch.testing.assert_close(got, tsp.block_ell_rmatvec(sk, ut).to(torch.float32), **KERNEL_TOL)
+    sk_j = jsp.sparsify_block_ell(key, K, tile_p, s, bk, maxb)
+    want_j = np.asarray(jsp.block_ell_rmatvec(sk_j, jnp.asarray(u)))
+    np.testing.assert_allclose(got.numpy(), want_j, **KERNEL_TOL)
+    if kind == "ot" and bk == 32:
+        rows, cols = jsp.sparsify_block_ell_pair(key, K, tile_p, s, bk, maxb)
+        sk_i = interop.block_ell_sketch_from_numpy(
+            *(np.asarray(t) for t in (rows.vals, rows.col_idx, rows.nblocks)), n, n,
+            vals_t=np.asarray(cols.vals), col_idx_t=np.asarray(cols.col_idx), nblocks_t=np.asarray(cols.nblocks),
+            device="cpu")
+        got_i = ref.block_ell_rmatvec_ref(sk_i.vals, tsp.block_ell_columns(sk_i), ut.reshape(-1, bk)).reshape(-1)
+        np.testing.assert_allclose(got_i.numpy(), np.asarray(jsp.block_ell_rmatvec(rows, jnp.asarray(u))),
+                                   **KERNEL_TOL)
+
+
+def _kernel_unit_tiles() -> int:
+    text = (library.CSRC / "block_ell.cu").read_text()
+    return int(re.search(r"constexpr int kUnitTiles = (\d+);", text).group(1))
+
+
+def test_kernel_unit_size_follows_the_source():
+    """The lists are cut into units of the kernel's own size."""
+    assert UNIT_TILES == _kernel_unit_tiles() >= 1
+
+
+def _emulated_rmatvec(vals, cols, u):
+    """The K~^T u kernel's arithmetic in float32 torch (its FMAs as a
+    product and a sum): unit q of column-block c holds the list entries
+    col_ptr[c] + (q - col_unit_ptr[c]) * kUnitTiles onward, at most
+    kUnitTiles of them. At Bk = 128 warp w sums the tile rows 16w..16w+15
+    of the unit's tiles in order, for each column, and the 8 warp sums are
+    added in warp order; at other Bk each column is summed over the tiles
+    and rows in order. The combine adds each column-block's unit partials
+    in unit order, from 0."""
+    unit = _kernel_unit_tiles()
+    bk = vals.shape[-1]
+    tiles = vals.reshape(-1, bk, bk).to(torch.float32)
+    ub = u.to(torch.float32).reshape(-1, bk)
+    ncb = cols.col_ptr.shape[0] - 1
+    out = torch.zeros((ncb, bk), dtype=torch.float32)
+    for c in range(ncb):
+        c0, c1 = int(cols.col_ptr[c]), int(cols.col_ptr[c + 1])
+        total = torch.zeros(bk, dtype=torch.float32)
+        for q in range(int(cols.col_unit_ptr[c]), int(cols.col_unit_ptr[c + 1])):
+            e0 = c0 + (q - int(cols.col_unit_ptr[c])) * unit
+            entries = range(e0, min(e0 + unit, c1))
+            if bk == 128:
+                acc = torch.zeros((8, bk), dtype=torch.float32)  # warp, column
+                for e in entries:
+                    t, r = int(cols.tile[e]), int(cols.urow[e])
+                    for k in range(16):
+                        rows = torch.arange(8) * 16 + k
+                        acc = acc + tiles[t][rows] * ub[r][rows][:, None]
+                part = torch.zeros(bk, dtype=torch.float32)
+                for w in range(8):
+                    part = part + acc[w]
+            else:
+                part = torch.zeros(bk, dtype=torch.float32)
+                for e in entries:
+                    t, r = int(cols.tile[e]), int(cols.urow[e])
+                    for i in range(bk):
+                        part = part + tiles[t][i] * ub[r][i]
+            total = total + part
+        out[c] = total
+    return out.reshape(-1)
+
+
+def _hand_layout(bk, nrb, maxb, ncb, seed):
+    """A row layout whose column-block 0 is kept by every row-block (several
+    units) and whose last column-block by none (output exactly 0), with
+    ragged valid counts."""
+    rng = np.random.default_rng(seed)
+    col_idx = np.zeros((nrb, maxb), np.int32)
+    for r in range(nrb):
+        col_idx[r, 1:] = rng.permutation(np.arange(1, ncb - 1))[: maxb - 1]
+    nblocks = rng.integers(1, maxb + 1, nrb).astype(np.int32)
+    nblocks[0] = maxb
+    valid = np.arange(maxb)[None, :] < nblocks[:, None]
+    vals = np.where(valid[:, :, None, None], rng.uniform(size=(nrb, maxb, bk, bk)), 0.0).astype(np.float32)
+    col_idx = np.where(valid, col_idx, 0).astype(np.int32)
+    u = rng.uniform(size=nrb * bk)
+    return vals, col_idx, nblocks, u
+
+
+@pytest.mark.parametrize("bk,nrb,maxb,ncb", [(8, 6, 3, 5), (16, 7, 4, 6), (128, 5, 3, 4)])
+def test_kernel_rmatvec_arithmetic_matches_plain_version(bk, nrb, maxb, ncb):
+    """The emulated units and combine against the plain version (and the
+    float64 CPU path) at the kernel tolerance: both float32, summed in other
+    orders. Column-block 0 spans several units; the last one has no tile
+    and comes out exactly 0."""
+    vals, col_idx, nblocks, u = _hand_layout(bk, nrb, maxb, ncb, seed=bk + nrb)
+    sk = tsp.BlockEllKernel(*_t(vals.astype(np.float64), col_idx, nblocks), nrb * bk, ncb * bk)
+    cols = tsp.block_ell_columns(sk)
+    assert int(cols.col_unit_ptr[1]) > 1 and int(cols.col_ptr[-1] - cols.col_ptr[-2]) == 0
+    ut = torch.as_tensor(u)
+    got = _emulated_rmatvec(sk.vals, cols, ut)
+    plain = ref.block_ell_rmatvec_ref(sk.vals, cols, ut.reshape(-1, bk)).reshape(-1)
+    torch.testing.assert_close(got, plain, **KERNEL_TOL)
+    torch.testing.assert_close(got, tsp.block_ell_rmatvec(sk, ut).to(torch.float32), **KERNEL_TOL)
+    assert bool((got[-bk:] == 0).all()) and bool((plain[-bk:] == 0).all())

@@ -9,6 +9,7 @@ the reference kernel tests' own, rtol 2e-4 / atol 2e-5 (matvec) and
 rtol 2e-4 / atol 5e-4 (LSE), for two float32 computations that sum in
 different orders; the fused solves as stated at each test.
 """
+import ctypes
 import math
 import re
 
@@ -233,17 +234,31 @@ def test_exports_follow_the_reference():
                                "gathered_kernel", "online_lse", "online_matvec"}
 
 
+def _ctype(param: str):
+    """The ctypes type that passes one C parameter: a pointer as c_void_p
+    (never cut to 32 bits), int64_t, int and float as themselves."""
+    if "*" in param:
+        return ctypes.c_void_p
+    return {"int64_t": ctypes.c_int64, "int": ctypes.c_int, "float": ctypes.c_float}[param.split()[0]]
+
+
 def test_library_signatures_match_the_cuda_sources():
     """No nvcc here: hold the ctypes declarations against the C launch
-    functions that the sources export (name and number of arguments)."""
+    functions that the sources export: name, number and type of every
+    argument (the block-ELL pair with the f64 switch and K~^T u's column
+    lists; the chunked LRU forward with its chunk and scratch), and the
+    chunk rule the LRU launcher asks the library for."""
     declared = {}
     for src in sorted(library.CSRC.glob("*.cu")):
         text = src.read_text()
         for name, params in re.findall(r"\bint (\w+)_launch\(([^)]*)\)", text):
-            declared[name] = len(params.split(","))
+            declared[name] = tuple(_ctype(param) for param in params.split(","))
         assert "--use_fast_math" not in text
-    assert declared == {name: len(args) for name, args in library.SIGNATURES.items()}
+    assert declared == {name: tuple(args) for name, args in library.SIGNATURES.items()}
+    assert {"block_ell_matvec", "block_ell_rmatvec", "lru_scan_fwd"} <= set(declared)
     assert set(library.LAUNCHES) == set(library.SIGNATURES)
+    assert "int64_t lru_scan_chunk(int64_t batch, int64_t seq, int64_t width)" in (
+        library.CSRC / "lru_scan.cu").read_text()
     assert "cuda_error_string" in (library.CSRC / "errors.cu").read_text()
     assert "--use_fast_math" not in library.NVCC_FLAGS
 

@@ -17,7 +17,15 @@ numpy inputs.
   reference test's tolerance for the gradients.
 * `lru_scan_bwd_ref` against a float64 reverse loop.
 * The wrapper's refusals: shapes, dtypes, contiguity and devices.
+* The CUDA forward's chunked arithmetic (each chunk's product and end
+  state, the inclusive carry of the chunk before it in chunk order, each
+  chunk re-run from its carry), emulated in float32 torch with the chunk
+  rule and constants read from ``csrc/lru_scan.cu``, against `lru_scan_ref` and the reference's
+  Pallas kernel in interpret mode: rtol = atol = 1e-5, the reference
+  test's tolerance (float32 sums in another order).
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +38,7 @@ torch.set_num_threads(1)
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import ops
+from repro_torch.kernels import library, ops
 from repro_torch.kernels.ops import lru_scan
 from repro_torch.kernels.ref import linear_scan, lru_scan_bwd_ref, lru_scan_ref
 
@@ -171,3 +179,88 @@ def test_lru_scan_refuses_bad_inputs(case):
 def test_lru_scan_takes_empty_sequences():
     out = lru_scan(torch.empty(2, 0, 4), torch.empty(2, 0, 4))
     assert tuple(out.shape) == (2, 0, 4)
+
+
+# --- the CUDA forward's chunked arithmetic, emulated in float32 torch --------
+
+
+def _source_constants() -> dict[str, int]:
+    text = (library.CSRC / "lru_scan.cu").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+            for name in ("kMaxChunk", "kMinChunk", "kTargetWarps")}
+
+
+def _chunk_length(batch, seq, width):
+    """lru_scan_chunk of the source: the longest power of two from kMaxChunk
+    down to kMinChunk at which batch * ceil(width / 32) * ceil(seq / L)
+    warps reach kTargetWarps."""
+    k = _source_constants()
+    groups = batch * -(-width // 32)
+    chunk = k["kMaxChunk"]
+    while chunk > k["kMinChunk"] and groups * -(-seq // chunk) < k["kTargetWarps"]:
+        chunk //= 2
+    return chunk
+
+
+def _emulated_chunked_scan(a, b, chunk):
+    """The forward launch's arithmetic: for each chunk the product A_c of a
+    and the end state H_c from 0, in step order; the inclusive carries
+    h_in(0) = 0, h_in(c+1) = A_c h_in(c) + H_c, in chunk order (a block
+    reads the one its predecessor published); each chunk's recurrence from
+    h_in(c). Float32, an FMA as a product and a sum."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    bsz, seq, width = a.shape
+    chunks = -(-seq // chunk)
+    spans = [(c * chunk, min((c + 1) * chunk, seq)) for c in range(chunks)]
+    agg_a, agg_h = [], []
+    for t0, t1 in spans[:-1]:
+        prod, state = torch.ones(bsz, width), torch.zeros(bsz, width)
+        for t in range(t0, t1):
+            state = a[:, t] * state + b[:, t]
+            prod = prod * a[:, t]
+        agg_a.append(prod)
+        agg_h.append(state)
+    h_in = [torch.zeros(bsz, width)]
+    for c in range(chunks - 1):
+        h_in.append(agg_a[c] * h_in[c] + agg_h[c])
+    h = torch.empty_like(a)
+    for (t0, t1), state in zip(spans, h_in):
+        for t in range(t0, t1):
+            state = a[:, t] * state + b[:, t]
+            h[:, t] = state
+    return h
+
+
+def test_chunk_rule_at_the_paths_shapes():
+    """Chunks of 256 at the prefill shape (128 of them: 10,240 warps, where
+    one thread a channel gave 80 warps) and at the train step's (8: 640
+    warps); the reference test shapes and a short sequence get the
+    shortest chunk."""
+    assert _chunk_length(1, 32768, 2560) == 256
+    assert _chunk_length(1, 2048, 2560) == 256
+    k = _source_constants()
+    assert all(_chunk_length(*shape) == k["kMinChunk"] for shape in SHAPES + [(2, 20, 40)])
+    assert k["kMaxChunk"] % k["kMinChunk"] == 0
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(2, 20, 40)], ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("chunk", ["rule", 64])
+def test_chunked_forward_arithmetic_matches_the_reference(shape, chunk):
+    """At the reference test's shapes (300 steps: 9 chunks of 32 and one of
+    12), at S = 20 < the chunk (one chunk, no carry), and with a chunk of 64
+    (300 = 4 x 64 + 44). The reference is its ``ops.lru_scan``, which pads
+    to whole tiles and runs ``lru_scan_fwd_call`` in interpret mode."""
+    a, b = _inputs(shape, sum(shape) + 7)
+    length = _chunk_length(*shape) if chunk == "rule" else chunk
+    got = _emulated_chunked_scan(a, b, length)
+    torch.testing.assert_close(got, lru_scan_ref(torch.as_tensor(a), torch.as_tensor(b)), **TOL)
+    want = np.asarray(jops.lru_scan(jnp.asarray(a), jnp.asarray(b), interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_chunked_forward_arithmetic_over_64_chunks():
+    """64 chunks of 32 on a narrow width, against the float64 recurrence."""
+    a, b = _inputs((1, 2048, 8), 11)
+    got = _emulated_chunked_scan(a, b, 32)
+    _, h_want = _sequential64(a, b, 1)
+    np.testing.assert_allclose(got.numpy(), h_want, **TOL)
