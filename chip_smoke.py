@@ -39,7 +39,11 @@ failure exits non-zero):
 6. the block-ELL path at n = 8192 (run (a)'s and run (c)'s problems, block
    128, s = 16 s0): ``block_ell_matvec`` (``K~ v``) against its plain
    version on the solver's own sketch (both layouts, the transposed one
-   also against a float64 scatter), over the reference test shapes, on a
+   also against a float64 scatter); the valid tiles per row-block of the OT
+   and UOT sketches, and ``K~ v`` over the valid slots alone (the solver's
+   launch, with the sketch's ``nblocks``) bitwise the launch over every
+   slot, and with an inf in v block 0 NaN exactly where that launch and the
+   plain version give NaN; ``K~ v`` over the reference test shapes, on a
    WFR sketch whose blocked rows must come out exactly 0, and batched
    (B = 8); ``block_ell_rmatvec`` (``K~^T u`` on the row layout's tiles,
    the solver's launch) against its plain version and the float64 scatter
@@ -73,7 +77,9 @@ failure exits non-zero):
 8. the RecurrentGemma-2B training slice at full width and full depth, after
    phase 7's model is freed: the LRU scan's backward (B6) against its plain
    version at the training shape (1, TRAIN_SEQ, 2560), the prefill shape
-   and the reference test shapes, two launches bitwise equal; one RG-LRU
+   and the reference test shapes, two launches bitwise equal, with each
+   shape's device time (profiler), registers, shared memory and blocks an
+   SM, and at the training shape where the wrapper's host time goes; one RG-LRU
    layer's gradients (every parameter and the input, float32) by ``pallas``
    (B5 + B6) against ``chunked``; three AdamW steps of ``make_train_step``
    on 1 x TRAIN_SEQ tokens from ``TokenPipeline`` (bf16 compute, float32
@@ -82,15 +88,18 @@ failure exits non-zero):
    each per RG-LRU layer), finite loss and gradient norm, lr = 0 and no
    parameter moved at step 0, every parameter moved at step 1; then one
    step's loss and gradients computed twice from the same state, which must
-   be bitwise equal or are named leaf by leaf.
+   be bitwise equal or are named leaf by leaf (the first also records the
+   layout of each cotangent B6 gets); then one warm step under the profiler
+   for B6's and B5's device time a launch as the step reaches them.
 
 ``--profile`` also runs (a), one prefill, one serving decode step and one
 train step under `torch.profiler` and prints where their device time goes.
 ``--compare-with`` runs no phase but 1: it builds each other source (an
 earlier ``fused_sinkhorn.cu``, ``block_ell.cu`` or ``lru_scan.cu``, or a
 variant of the current one) apart and times its bare launches in turns
-with the current ones (`compare_sources`, which also prints both online
-kernels' inner-loop SASS mix; `compare_block_ell`; `compare_lru_scan`).
+with the current ones, by CUDA events and the profiler's device time
+(`compare_sources`, which also prints both online kernels' inner-loop SASS
+mix; `compare_block_ell`, both products; `compare_lru_scan`, B5 and B6).
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout, it exits non-zero before printing any result.
@@ -208,8 +217,10 @@ def device_ms(fn, reps: int = 20) -> float | None:
 
 
 def ptxas_report(log_text: str, marker: str) -> dict[str, dict[str, int]]:
-    """Registers, stack frame and spill bytes of every kernel whose
-    (mangled) name holds ``marker``, from the build's ``-Xptxas -v`` log."""
+    """Registers, static shared memory, stack frame and spill bytes of
+    every kernel whose (mangled) name holds ``marker``, from the build's
+    ``-Xptxas -v`` log (dynamic shared memory is the launch's, not
+    listed)."""
     report, name = {}, None
     for line in log_text.splitlines():
         if found := re.search(r"Compiling entry function '([^']+)'", line):
@@ -220,6 +231,8 @@ def ptxas_report(log_text: str, marker: str) -> dict[str, dict[str, int]]:
                 stack=int(found.group(1)), spill_stores=int(found.group(2)), spill_loads=int(found.group(3)))
         elif name and (found := re.search(r"Used (\d+) registers", line)):
             report.setdefault(name, {})["registers"] = int(found.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            report[name]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
     return report
 
 
@@ -705,29 +718,37 @@ def in_turns(runs, reps: int):
 
 
 def compare_block_ell(old_source: Path, device) -> None:
-    """``--compare-with OLD_BLOCK_ELL_CU``: another ``block_ell.cu`` (an
-    earlier one, whose one launch function takes float32 v and no dtype
-    switch, or a variant of the current one) built apart; on the n = 8192 OT
-    sketch of phase 6, its ``K~ v`` on the row layout and its ``K~^T u`` (the
-    same kernel on the transposed layout) against the current launches, each
-    first held against the plain version, then timed in turns (old, new,
-    new, old) as bare launches on float32 v, with device times from the
-    profiler; the current ones on float64 v too. Then the host time of a
-    launch through `library.launch` and through PR 16's
-    (`compare_launch_path`)."""
+    """``--compare-with OLD_BLOCK_ELL_CU``: another ``block_ell.cu`` built
+    apart: an earlier one (one launch function on float32 v and no dtype
+    switch; or a dtype switch, every slot walked and a ``K~^T u`` of its
+    own) or a variant of the current one (the valid counts). On the n = 8192
+    OT sketch of phase 6: its ``K~ v`` on the row layout against the
+    current one as the solver launches it (the valid slots alone) and over
+    every slot; its ``K~^T u`` (the oldest: its ``K~ v`` kernel on the
+    transposed layout) against the current one. Each is first held against
+    the plain version, then timed in turns (old, new, new, old) as bare
+    launches on float32 v, by CUDA events and by the profiler's device
+    time; the current ones on float64 v too."""
     import ctypes
 
     import torch
 
     import repro_torch as rt
+    from repro_torch.kernels import library
     from repro_torch.kernels.block_ell import _launch_block_ell_matvec, _launch_block_ell_rmatvec
     from repro_torch.kernels.ref import block_ell_matvec_ref, block_ell_rmatvec_ref
 
     old, _ = build_apart(old_source, "block_ell")
-    typed = c_arity(old_source.read_text(), "block_ell_matvec_launch") == 14
+    text = old_source.read_text()
+    arity = c_arity(text, "block_ell_matvec_launch")  # 13: no dtype switch, 14: a dtype switch, 15: valid counts
     P, I64, INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    old.block_ell_matvec_launch.argtypes = [P, P, P, P, I64, I64, I64, INT, I64, I64] + ([INT] if typed else []) + [P, P, P]
+    old.block_ell_matvec_launch.argtypes = ([P, P, P, P] + ([P] if arity == 15 else []) + [I64, I64, I64, INT, I64, I64]
+                                            + ([INT] if arity >= 14 else []) + [P, P, P])
     old.block_ell_matvec_launch.restype = ctypes.c_int
+    old_rmatvec = "block_ell_rmatvec_launch" in text
+    if old_rmatvec:
+        old.block_ell_rmatvec_launch.argtypes = list(library.SIGNATURES["block_ell_rmatvec"])
+        old.block_ell_rmatvec_launch.restype = ctypes.c_int
     n = 8192
     ot, _ = block_ell_problems(n, device)
     sk = rt.build_block_ell_sketch(ot, torch.Generator(device=device).manual_seed(0), 16 * rt.s0(n))
@@ -738,141 +759,164 @@ def compare_block_ell(old_source: Path, device) -> None:
     flag = torch.zeros(1, dtype=torch.int32, device=device)
     out = torch.empty(n, dtype=torch.float32, device=device)
     out64 = torch.empty(n, dtype=torch.float64, device=device)
+    part = torch.empty(sk.columns.units * sk.block, dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
 
-    def old_launch(lay):
+    def old_launch(lay):  # the old K~ v, with the valid counts where it takes them
+        nblocks = (lay.nblocks.data_ptr(),) if arity == 15 else ()
         code = old.block_ell_matvec_launch(
             lay.vals32.data_ptr(), lay.col_idx.data_ptr(), v32.data_ptr(),
-            None if lay.row_ptr is None else lay.row_ptr.data_ptr(), lay.n // lay.block, lay.vals.shape[0],
-            lay.max_blocks, lay.block, lay.m // lay.block, lay.n // lay.block, *([0] if typed else []),
-            out.data_ptr(), flag.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+            None if lay.row_ptr is None else lay.row_ptr.data_ptr(), *nblocks, lay.n // lay.block,
+            lay.vals.shape[0], lay.max_blocks, lay.block, lay.m // lay.block, lay.n // lay.block,
+            *([0] if arity >= 14 else []), out.data_ptr(), flag.data_ptr(), stream)
         check(code == 0, f"old block_ell_matvec launch failed ({code})")
 
-    def new_matvec(w, o):
+    def old_rmatvec_launch():
+        cols = sk.columns
+        code = old.block_ell_rmatvec_launch(
+            sk.vals32.data_ptr(), cols.tile.data_ptr(), cols.urow.data_ptr(), cols.col_ptr.data_ptr(),
+            cols.col_unit_ptr.data_ptr(), v32.data_ptr(), cols.units, sk.vals.shape[0] * sk.max_blocks,
+            n // sk.block, sk.block, n // sk.block, 0, part.data_ptr(), out.data_ptr(), flag.data_ptr(), stream)
+        check(code == 0, f"old block_ell_rmatvec launch failed ({code})")
+
+    def new_matvec(w, o, nblocks):
         return lambda: _launch_block_ell_matvec(sk.vals32, sk.col_idx, w, None, o, flag, col_blocks=n // sk.block,
-                                                row_blocks_per_sketch=n // sk.block)
+                                                row_blocks_per_sketch=n // sk.block, nblocks=nblocks)
 
     def new_rmatvec(w, o):
         return lambda: _launch_block_ell_rmatvec(sk.vals32, sk.columns, w, o, flag)
 
     products = (
-        ("K~ v", lambda: old_launch(sk), new_matvec(v32, out), new_matvec(v, out64),
+        ("K~ v", lambda: old_launch(sk), new_matvec(v32, out, sk.nblocks), new_matvec(v, out64, sk.nblocks),
+         {"new over every slot": new_matvec(v32, out, None)},
          block_ell_matvec_ref(sk.vals32, sk.col_idx, v32.reshape(-1, sk.block)).reshape(-1)),
-        ("K~^T u", lambda: old_launch(skt), new_rmatvec(v32, out), new_rmatvec(v, out64),
-         block_ell_rmatvec_ref(sk.vals32, sk.columns, v32.reshape(-1, sk.block)).reshape(-1)),
+        ("K~^T u", old_rmatvec_launch if old_rmatvec else lambda: old_launch(skt), new_rmatvec(v32, out),
+         new_rmatvec(v, out64), {}, block_ell_rmatvec_ref(sk.vals32, sk.columns, v32.reshape(-1, sk.block)).reshape(-1)),
     )
-    for name, run_old, run_new, run_new64, want in products:
-        for label, fn, o in (("old", run_old, out), ("new", run_new, out), ("new float64", run_new64, out64)):
+    for name, run_old, run_new, run_new64, others, want in products:
+        results = {}
+        for label, fn, o in (("old", run_old, out), ("new", run_new, out), ("new float64", run_new64, out64),
+                             *((label, fn, out) for label, fn in others.items())):
             fn()
             torch.cuda.synchronize()
             torch.testing.assert_close(o.float(), want, **BLOCK_ELL_TOL)
+            results[label] = o.float().clone()
             log(f"compare block-ELL {name}: {label} max_abs_err {_max_abs_err(o.float(), want)!r}")
-        times, clocks = in_turns((("old", run_old), ("new", run_new), ("new", run_new), ("old", run_old)), reps=50)
-        dev = {label: device_ms(fn, reps=50) for label, fn in (("old", run_old), ("new", run_new),
-                                                               ("new float64", run_new64))}
+        log(f"compare block-ELL {name}: new and old bitwise equal: {bool(torch.equal(results['new'], results['old']))}"
+            + "".join(f"; {label} and new: {bool(torch.equal(results[label], results['new']))}" for label in others))
+        turns = (("old", run_old), ("new", run_new), ("new", run_new), ("old", run_old))
+        times, clocks = in_turns(turns, reps=50)
+        dev = device_in_turns(turns + tuple(others.items()) + (("new float64", run_new64),), reps=50)
         log(f"compare block-ELL {name} n={n}: bare launch ms in turns (float32 v) {json.dumps(times)}; "
-            f"device ms (profiler) {json.dumps(dev)}; the new launch on float64 v "
+            f"device ms (profiler) in turns, then the others {json.dumps(dev)}; the new launch on float64 v "
             f"{time_ms(run_new64, reps=50)!r} ms; during the turns (nvidia-smi medians) {json.dumps(clocks)}")
     check(int(flag) == 0, "a compared block-ELL launch flagged an index")
-    compare_launch_path(lambda: _launch_block_ell_matvec(sk.vals32, sk.col_idx, v, None, out64, flag,
-                                                         col_blocks=n // sk.block, row_blocks_per_sketch=n // sk.block))
 
 
-def compare_launch_path(run_launch, launches: int = 2000, rounds: int = 6) -> None:
-    """Host time a launch of ``run_launch()`` (a bare ``K~ v`` launch)
-    through `library.launch` and through PR 16's ``launch`` (the library
-    looked up under the lock, the device context entered on every call,
-    the function found by name), each over ``launches`` back-to-back
-    launches (host clock, no sync inside; the kernel is shorter than the
-    host work, so the host sets the pace), in turns, ``rounds`` times."""
-    import torch
-
-    from repro_torch.kernels import block_ell, library
-
-    def pr16_launch(name, device, *args):
-        lib = library.load()
-        with torch.cuda.device(device):
-            code = getattr(lib, f"{name}_launch")(*args, torch.cuda.current_stream(device).cuda_stream)
-        check(code == 0, f"{name} launch through PR 16's path failed ({code})")
-        library.LAUNCHES[name] += 1
-
-    paths = {"library.launch": library.launch, "PR 16's launch": pr16_launch}
-    us = {label: [] for label in paths}
-    try:
-        for r in range(rounds):
-            for label in (list(paths) if r % 2 == 0 else list(paths)[::-1]):
-                block_ell.launch = paths[label]
-                for _ in range(launches // 10):
-                    run_launch()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(launches):
-                    run_launch()
-                us[label].append((time.perf_counter() - t0) / launches * 1e6)
-                torch.cuda.synchronize()
-    finally:
-        block_ell.launch = library.launch
-    log(f"launch path: host us a bare K~ v launch ({launches} back to back, {rounds} rounds in turns): "
-        + "; ".join(f"{label}: median {statistics.median(v)!r}, all {v!r}" for label, v in us.items()))
+def device_in_turns(runs, reps: int) -> list:
+    """Each ``(label, fn)``'s profiler device time (`device_ms`), in the
+    order given: a list of (label, ms)."""
+    return [(label, device_ms(fn, reps=reps)) for label, fn in runs]
 
 
 def compare_lru_scan(old_source: Path, device) -> None:
     """``--compare-with OLD_LRU_SCAN_CU``: another ``lru_scan.cu`` (an
-    earlier one, whose forward walks each channel in one thread and takes no
-    chunk or scratch, or a variant of the current one) built apart; its forward and
-    the current one held against the plain version, then timed in turns
-    (old, new, new, old) as bare launches at the prefill shape
-    (1, 32768, 2560) and the training shape (1, 2048, 2560), with device
-    times from the profiler."""
+    earlier one, or a variant of the current one) built apart. Its forward
+    (B5; the oldest walks each channel in one thread and takes no chunk or
+    scratch) and backward (B6; before the chunked one, one thread a channel
+    with no chunk or scratch) and the current ones are held against their
+    plain versions, then timed in turns (old, new, new, old) as bare
+    launches at the prefill shape (1, 32768, 2560) and the training shape
+    (1, 2048, 2560), by CUDA events and by the profiler's device time."""
     import ctypes
 
     import torch
 
     from repro_torch.kernels.library import load
-    from repro_torch.kernels.lru_scan import _launch_lru_scan_fwd
-    from repro_torch.kernels.ref import lru_scan_ref
+    from repro_torch.kernels.lru_scan import _launch_lru_scan_bwd, _launch_lru_scan_fwd
+    from repro_torch.kernels.ref import lru_scan_bwd_ref, lru_scan_ref
 
     old, _ = build_apart(old_source, "lru_")
-    chunked = c_arity(old_source.read_text(), "lru_scan_fwd_launch") == 9
+    text = old_source.read_text()
+    chunked = c_arity(text, "lru_scan_fwd_launch") == 9
+    chunked_bwd = c_arity(text, "lru_scan_bwd_launch") == 11
     P, I64 = ctypes.c_void_p, ctypes.c_int64
     old.lru_scan_fwd_launch.argtypes = [P, P, P, I64, I64, I64] + ([I64, P] if chunked else []) + [P]
     old.lru_scan_fwd_launch.restype = ctypes.c_int
-    if chunked:
-        old.lru_scan_chunk.argtypes = [I64, I64, I64]
-        old.lru_scan_chunk.restype = I64
+    old.lru_scan_bwd_launch.argtypes = [P, P, P, P, P, I64, I64, I64] + ([I64, P] if chunked_bwd else []) + [P]
+    old.lru_scan_bwd_launch.restype = ctypes.c_int
+    rules = [old.lru_scan_chunk] if chunked else []
+    if chunked_bwd:  # a variant of the current source: a rule of its own
+        rules.append(old.lru_scan_bwd_chunk)
+    for rule in rules:
+        rule.argtypes = [I64, I64, I64]
+        rule.restype = I64
     for shape in ((1, PREFILL_LEN, 2560), (1, TRAIN_SEQ, 2560)):
         gen = torch.Generator(device=device).manual_seed(sum(shape))
         a = 0.7 + 0.299 * torch.rand(shape, device=device, generator=gen)
         b = 0.1 * torch.randn(shape, device=device, generator=gen)
+        g = torch.randn(shape, device=device, generator=gen)
         h = torch.empty_like(a)
-        extra = ()
-        if chunked:
-            chunk = old.lru_scan_chunk(*shape)
-            part = torch.empty(3 * shape[0] * -(-shape[1] // chunk) * shape[2], device=device)
-            extra = (chunk, part.data_ptr())
+        da, db = torch.empty_like(a), torch.empty_like(a)
+        scratch = []  # the old launches' scratch, kept alive while they run
+
+        def extra(rule):
+            if rule is None:
+                return ()
+            chunk = rule(*shape)
+            scratch.append(torch.empty(3 * shape[0] * -(-shape[1] // chunk) * shape[2], device=device))
+            return chunk, scratch[-1].data_ptr()
+
+        fwd_extra = extra(old.lru_scan_chunk if chunked else None)
+        bwd_extra = extra(old.lru_scan_bwd_chunk if chunked_bwd else None)
+        stream = torch.cuda.current_stream(device).cuda_stream
 
         def run_old():
-            code = old.lru_scan_fwd_launch(a.data_ptr(), b.data_ptr(), h.data_ptr(), *shape, *extra,
-                                           torch.cuda.current_stream(device).cuda_stream)
+            code = old.lru_scan_fwd_launch(a.data_ptr(), b.data_ptr(), h.data_ptr(), *shape, *fwd_extra, stream)
             check(code == 0, f"old lru_scan_fwd launch failed ({code})")
 
         def run_new():
             _launch_lru_scan_fwd(a, b, h)
 
-        want = lru_scan_ref(a, b)
+        def run_old_bwd():
+            code = old.lru_scan_bwd_launch(a.data_ptr(), h_ref.data_ptr(), g.data_ptr(), da.data_ptr(),
+                                           db.data_ptr(), *shape, *bwd_extra, stream)
+            check(code == 0, f"old lru_scan_bwd launch failed ({code})")
+
+        def run_new_bwd():
+            _launch_lru_scan_bwd(a, h_ref, g, da, db)
+
+        reps = 20 if shape[1] == PREFILL_LEN else 50
+        h_ref = lru_scan_ref(a, b)
+        bits = {}
         for label, fn in (("old", run_old), ("new", run_new)):
             fn()
             torch.cuda.synchronize()
-            torch.testing.assert_close(h, want, **LRU_TOL)
-            log(f"compare lru_scan_fwd {shape}: {label} max_abs_err {_max_abs_err(h, want)!r}")
-        del want
-        reps = 20 if shape[1] == PREFILL_LEN else 50
-        times, clocks = in_turns((("old", run_old), ("new", run_new), ("new", run_new), ("old", run_old)), reps)
-        dev = {label: device_ms(fn, reps=reps) for label, fn in (("old", run_old), ("new", run_new))}
-        log(f"compare lru_scan_fwd {shape} (chunks of {load().lru_scan_chunk(*shape)}): bare launch ms in turns "
-            f"{json.dumps(times)}; device ms (profiler) {json.dumps(dev)}; bound "
-            f"{3 * a.numel() * 4 / HBM_BYTES_PER_S * 1e3!r} ms (bytes); during the turns (nvidia-smi medians) "
-            f"{json.dumps(clocks)}")
-        del a, b, h
+            torch.testing.assert_close(h, h_ref, **LRU_TOL)
+            bits[label] = h.clone()
+            log(f"compare lru_scan_fwd {shape}: {label} max_abs_err {_max_abs_err(h, h_ref)!r}")
+        log(f"compare lru_scan_fwd {shape}: old and new bitwise equal: {bool(torch.equal(bits['old'], bits['new']))}")
+        del bits
+        da_r, db_r = lru_scan_bwd_ref(a, h_ref, g)
+        for label, fn in (("old", run_old_bwd), ("new", run_new_bwd)):
+            fn()
+            torch.cuda.synchronize()
+            torch.testing.assert_close(da, da_r, **LRU_GRAD_TOL)
+            torch.testing.assert_close(db, db_r, **LRU_GRAD_TOL)
+            log(f"compare lru_scan_bwd {shape}: {label} max_abs_err da {_max_abs_err(da, da_r)!r}, "
+                f"db {_max_abs_err(db, db_r)!r}")
+        del da_r, db_r
+        for name, run_o, run_n, streams, rule in (("lru_scan_fwd", run_old, run_new, 3, load().lru_scan_chunk),
+                                                   ("lru_scan_bwd", run_old_bwd, run_new_bwd, 5,
+                                                    load().lru_scan_bwd_chunk)):
+            turns = (("old", run_o), ("new", run_n), ("new", run_n), ("old", run_o))
+            times, clocks = in_turns(turns, reps)
+            dev = device_in_turns(turns, reps)
+            log(f"compare {name} {shape} (the new launch's chunks of {rule(*shape)}): bare launch ms in turns "
+                f"{json.dumps(times)}; device ms (profiler) in turns {json.dumps(dev)}; bound "
+                f"{streams * a.numel() * 4 / HBM_BYTES_PER_S * 1e3!r} ms (bytes); during the turns "
+                f"(nvidia-smi medians) {json.dumps(clocks)}")
+        del a, b, g, h, h_ref, da, db, scratch
 
 
 # --------------------------------------------------------------------------
@@ -1155,6 +1199,68 @@ def bsr_library_ms(sk, v32):
     return time_ms(lambda: bsr @ col), f"device time {dev_ms!r} ms (profiler), max_abs_err against the plain version {err!r}"
 
 
+def nblocks_spread(sk) -> str:
+    """The valid tiles of a sketch's row layout per row-block: max, mean and
+    the histogram over 0 .. max_blocks."""
+    import torch
+
+    nb = sk.nblocks.long()
+    hist = torch.bincount(nb, minlength=sk.max_blocks + 1).tolist()
+    return (f"{int(nb.sum())} valid tiles of {nb.numel() * sk.max_blocks} slots over {nb.numel()} row-blocks: "
+            f"max {int(nb.max())}, mean {float(nb.double().mean())!r}, row-blocks holding 0..{sk.max_blocks} "
+            f"tiles {hist}")
+
+
+def valid_slot_walk(sk_ot, sk_uot, v) -> None:
+    """``K~ v`` over the valid slots alone (the solver's launch, with the
+    sketch's ``nblocks``) on the OT and UOT sketches: the ``nblocks`` spread,
+    then bitwise the all-slot launch and within the kernel tolerance of the
+    plain version, on float64 and float32 v; with an inf in v block 0, NaN in
+    exactly the rows where the all-slot launch and the plain version give
+    NaN."""
+    import torch
+
+    from repro_torch.core import sparsify
+    from repro_torch.kernels.block_ell import _launch_block_ell_matvec
+    from repro_torch.kernels.ref import block_ell_matvec_ref
+
+    flag = torch.zeros(1, dtype=torch.int32, device=v.device)
+
+    def launch(sk, w, nblocks):
+        out = torch.empty(sk.n, dtype=w.dtype, device=w.device)
+        _launch_block_ell_matvec(sk.vals32, sk.col_idx, w, None, out, flag, col_blocks=sk.m // sk.block,
+                                 row_blocks_per_sketch=sk.n // sk.block, nblocks=nblocks)
+        return out
+
+    for label, sk in (("OT", sk_ot), ("UOT", sk_uot)):
+        log(f"block_ell nblocks spread, {label} sketch n={sk.n}: {nblocks_spread(sk)}")
+        for w in (v, v.to(torch.float32)):
+            valid, every = launch(sk, w, sk.nblocks), launch(sk, w, None)
+            solver = sparsify.block_ell_matvec(sk, w, flag)
+            plain = block_ell_matvec_ref(sk.vals32, sk.col_idx, w.reshape(-1, sk.block)).reshape(-1)
+            torch.cuda.synchronize()
+            check(bool(torch.equal(valid, every)) and bool(torch.equal(solver, valid)),
+                  f"K~ v over the valid slots, {label} {w.dtype}: not bitwise the all-slot launch")
+            torch.testing.assert_close(valid.float(), plain, **BLOCK_ELL_TOL)
+            log(f"block_ell_matvec {label} {w.dtype}: the valid-slot walk (the solver's call) bitwise equal to "
+                f"the all-slot launch, max_abs_err {_max_abs_err(valid.float(), plain)!r} against the plain version")
+        w = v.clone()
+        w[3] = math.inf
+        valid, every = launch(sk, w, sk.nblocks), launch(sk, w, None)
+        plain = block_ell_matvec_ref(sk.vals32, sk.col_idx, w.reshape(-1, sk.block)).reshape(-1)
+        torch.cuda.synchronize()
+        nan = torch.isnan(valid)
+        padded = (sk.nblocks < sk.max_blocks).repeat_interleave(sk.block)
+        check(bool(torch.equal(nan, torch.isnan(every))) and bool(torch.equal(nan, torch.isnan(plain)))
+              and bool(nan[padded].all()),
+              f"K~ v over the valid slots, {label}, an inf in v block 0: NaN rows differ from the all-slot launch's")
+        check(bool(torch.equal(valid[~nan], every[~nan])), f"K~ v, {label}, an inf in v block 0: other rows differ")
+        log(f"block_ell_matvec {label} with an inf in v block 0: {int(nan.sum())} NaN rows ({int(padded.sum())} "
+            f"in row-blocks with padding), the same as the all-slot launch's and the plain version's; the other "
+            f"rows bitwise the all-slot launch's")
+    check(int(flag) == 0, "a valid-slot launch flagged an index")
+
+
 def check_block_ell_kernel(n: int, device) -> list[dict]:
     """B4 against its plain versions on the card: ``K~ v`` at the solver's
     own OT sketch (n = 8192, block 128, s = 16 s0) on both layouts, over the
@@ -1180,7 +1286,7 @@ def check_block_ell_kernel(n: int, device) -> list[dict]:
     from repro_torch.kernels.ref import block_ell_matvec_ref, block_ell_rmatvec_ref
 
     log_ptxas("block_ell")
-    ot, _ = block_ell_problems(n, device)
+    ot, uot = block_ell_problems(n, device)
     s = 16 * rt.s0(n)
     sk = rt.build_block_ell_sketch(ot, torch.Generator(device=device).manual_seed(0), s)
     skt = transposed32(sk)
@@ -1203,6 +1309,7 @@ def check_block_ell_kernel(n: int, device) -> list[dict]:
         err = held(f"block_ell_matvec {name}", out, again, ref)
         log(f"block_ell_matvec {name} n={n} ell_rows={lay.vals.shape[0]} max_blocks={lay.max_blocks} "
             f"valid_tiles={int(lay.nblocks.sum())}: max_abs_err={err!r}, two launches bitwise equal")
+    valid_slot_walk(sk, rt.build_block_ell_sketch(uot, torch.Generator(device=device).manual_seed(0), s), v)
     # the transposed launch is K~^T v: held against the float64 scatter
     out_t = sparsify.block_ell_rmatvec(sk, v)
     ref64 = scatter_rmatvec64(sk, v)
@@ -1367,6 +1474,16 @@ def check_block_ell_kernel(n: int, device) -> list[dict]:
             kernel_ms[key] = device_ms(bare_launch)
         nbytes = block_ell_bytes(lay, 4)
         bounds[name] = block_ell_bound(nbytes, int(lay.nblocks.sum()), lay.block) + (nbytes,)
+    for w in (v32, v):  # K~ v as the solver launches it: the valid slots alone
+        buf = torch.empty(sk.n, dtype=w.dtype, device=device)
+
+        def valid_launch(buf=buf, w=w):
+            _launch_block_ell_matvec(sk.vals32, sk.col_idx, w, None, buf, flag, col_blocks=sk.m // sk.block,
+                                     row_blocks_per_sketch=sk.n // sk.block, nblocks=sk.nblocks)
+
+        key = "valid" if w is v32 else "valid float64"
+        bare[key] = time_ms(valid_launch, reps=reps)
+        kernel_ms[key] = device_ms(valid_launch)
     # the entries' bounds: each product as the solver runs it, on float64
     for name, rm in (("K~ v", False), ("K~^T u", True)):
         nbytes = block_ell_bytes(sk, 8, rmatvec=rm)
@@ -1402,6 +1519,9 @@ def check_block_ell_kernel(n: int, device) -> list[dict]:
             f"{kernel_ms[name + ' float64']!r} ms (profiler, device time), bound on float32 v {bound!r} ms "
             f"({bound_by}: {nbytes} bytes of the valid tiles; the kernel also reads "
             f"{lay.vals.shape[0] * lay.max_blocks - int(lay.nblocks.sum())} zero padding tiles)")
+    log(f"block_ell_matvec times, row layout, the valid slots alone (the solver's launch): bare launch "
+        f"{bare['valid']!r} ms on float32 v, {bare['valid float64']!r} on float64 (CUDA events), kernel "
+        f"{kernel_ms['valid']!r} / {kernel_ms['valid float64']!r} ms (profiler, device time)")
     log(f"block_ell_matvec times, row layout (CUDA events): wrapper as the solver calls it {ms!r} ms, bound "
         f"on float64 v {bounds['K~ v'][0]!r} ms ({bounds['K~ v'][1]}: {bounds['K~ v'][2]} bytes) "
         f"(the transposed-layout path's call {tl_ms!r} ms), plain {plain_ms!r} ms (device time {plain_dev!r} ms, "
@@ -1650,7 +1770,6 @@ def check_lru_scan_kernel(device) -> dict:
     the bare launch at the training shape."""
     import torch
 
-    from repro_torch.kernels.library import load
     from repro_torch.kernels.lru_scan import _launch_lru_scan_fwd
     from repro_torch.kernels.ops import lru_scan
     from repro_torch.kernels.ref import lru_scan_ref
@@ -1669,8 +1788,7 @@ def check_lru_scan_kernel(device) -> dict:
         check(bool(torch.isfinite(out).all()), f"lru_scan {shape}: non-finite output")
         torch.testing.assert_close(out, ref, **LRU_TOL)
         errs.append(_max_abs_err(out, ref))
-        chunk = load().lru_scan_chunk(*shape)
-        log(f"lru_scan {shape}: chunks of {chunk} ({-(-shape[1] // chunk)} of them): max_abs_err={errs[-1]!r} "
+        log(f"lru_scan {shape}: {lru_occupancy(False, shape)}: max_abs_err={errs[-1]!r} "
             f"(max |h| {float(ref.abs().max())!r}), two launches bitwise equal")
         if shape == LRU_SHAPES[0]:
             timed = a, b
@@ -1833,6 +1951,36 @@ def run_serving_slice(device, profile_run: bool = False) -> int:
 # --------------------------------------------------------------------------
 
 
+def host_us(fn, reps: int = 200) -> float:
+    """Median host microseconds of one ``fn()`` issued back to back (no
+    sync inside a run of ``reps``, so the card's work overlaps; 5 runs)."""
+    import torch
+
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        runs.append((time.perf_counter() - t0) / reps * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
+def lru_occupancy(backward: bool, shape) -> str:
+    """The chunk, the chunks, the blocks (warps) of a launch at ``shape`` and
+    how many of them an SM holds at once (the runtime's occupancy
+    calculator), with the dynamic shared memory of a block."""
+    from repro_torch.kernels.library import load
+
+    bsz, seq, width = shape
+    chunk = (load().lru_scan_bwd_chunk if backward else load().lru_scan_chunk)(*shape)
+    chunks = -(-seq // chunk)
+    return (f"chunks of {chunk} ({chunks} of them, {bsz * -(-width // 32) * chunks} one-warp blocks), "
+            f"{2 * chunk * 32 * 4} bytes of dynamic shared memory a block, "
+            f"{load().lru_scan_blocks_per_sm(int(backward), chunk)} blocks an SM")
+
+
 def check_lru_scan_bwd_kernel(device) -> dict:
     """B6 against its plain version at the training shape, the prefill
     shape and the reference test shapes (a, b as phase 7 draws them, the
@@ -1840,15 +1988,21 @@ def check_lru_scan_bwd_kernel(device) -> dict:
     autograd path (B5 forward, B6 backward) against `lru_scan_bwd_ref` on
     the same h; two launches bitwise equal; at every shape the times of the
     wrapper (``torch.autograd.grad`` through `ops.lru_scan`, as the train
-    step reaches it: allocation and launch), the bare launch and the plain
-    version, and the bytes bound (a, h and g read once, da and db written
-    once). Returns the entry at the training shape."""
+    step reaches it: allocation and launch), the bare launch (CUDA events
+    and the profiler's device time) and the plain version, and the bytes
+    bound (a, h and g read once, da and db written once); the kernel's
+    registers (ptxas), shared memory and blocks an SM. At the training shape,
+    where the wrapper's host time goes: ``torch.autograd.grad`` alone, the
+    allocation of da and db, ``g.contiguous()``, the chunk rule and scratch,
+    and the bare launch, each issued back to back on the host clock.
+    Returns the entry at the training shape."""
     import torch
 
-    from repro_torch.kernels.lru_scan import _launch_lru_scan_bwd, _launch_lru_scan_fwd
+    from repro_torch.kernels.lru_scan import _chunk_scratch, _launch_lru_scan_bwd, _launch_lru_scan_fwd
     from repro_torch.kernels.ops import lru_scan
     from repro_torch.kernels.ref import lru_scan_bwd_ref
 
+    log_ptxas("lru_chunk_bwd")
     errs = []
     rows = {}
     for shape in LRU_BWD_SHAPES:
@@ -1870,8 +2024,13 @@ def check_lru_scan_bwd_kernel(device) -> dict:
         ad, hd = a.detach(), h.detach()
         bufs = torch.empty_like(ad), torch.empty_like(ad)
         small = shape[1] * shape[2] < (1 << 20)
+
+        def bare():
+            _launch_lru_scan_bwd(ad, hd, g, *bufs)
+
         ms = time_ms(lambda: torch.autograd.grad(h, (a, b), g, retain_graph=True))
-        bare_ms = time_ms(lambda: _launch_lru_scan_bwd(ad, hd, g, *bufs))
+        bare_ms = time_ms(bare)
+        dev_ms = device_ms(bare)
         plain_ms = time_ms(lambda: lru_scan_bwd_ref(ad, hd, g), warmup=1, reps=20 if small else 5)
         fwd_ms = time_ms(lambda: _launch_lru_scan_fwd(ad, b.detach(), bufs[0]))  # B5 at this shape, for its row
         nbytes = 5 * ad.numel() * 4
@@ -1880,8 +2039,20 @@ def check_lru_scan_bwd_kernel(device) -> dict:
                            bound_by="bytes" if t_bytes >= t_ops else "operations")
         log(f"lru_scan_bwd {shape}: max_abs_err={err!r} (max |da| {float(da_r.abs().max())!r}, max |db| "
             f"{float(db_r.abs().max())!r}), two launches bitwise equal; wrapper {ms!r} ms, bare launch "
-            f"{bare_ms!r} ms, plain {plain_ms!r} ms, bound {max(t_bytes, t_ops)!r} ms ({nbytes} bytes; "
-            f"float32 ops {t_ops!r} ms); B5's bare launch at this shape {fwd_ms!r} ms")
+            f"{bare_ms!r} ms, device {dev_ms!r} ms (profiler), plain {plain_ms!r} ms, bound "
+            f"{max(t_bytes, t_ops)!r} ms ({nbytes} bytes; float32 ops {t_ops!r} ms), device share of bound "
+            f"{(max(t_bytes, t_ops) / dev_ms if dev_ms else float('nan'))!r}; {lru_occupancy(True, shape)}; "
+            f"B5's bare launch at this shape {fwd_ms!r} ms")
+        if shape == (1, TRAIN_SEQ, 2560):
+            parts = {
+                "torch.autograd.grad": host_us(lambda: torch.autograd.grad(h, (a, b), g, retain_graph=True)),
+                "empty_like x2 (da, db)": host_us(lambda: (torch.empty_like(ad), torch.empty_like(ad))),
+                "g.contiguous()": host_us(lambda: g.contiguous()),
+                "chunk rule + scratch": host_us(lambda: _chunk_scratch(ad, backward=True)),
+                "bare launch": host_us(bare),
+            }
+            log(f"lru_scan_bwd {shape} host us a call, issued back to back: {json.dumps(parts)}; the wrapper's "
+                f"CUDA-event time {ms * 1e3!r} us against the bare launch's {bare_ms * 1e3!r} us")
         del a, b, g, h, da, db, da2, db2, da_r, db_r, ad, hd, bufs
     torch.cuda.empty_cache()
     main = rows[LRU_BWD_SHAPES[0]]
@@ -2012,19 +2183,36 @@ def run_training_slice(device, profile_run: bool = False) -> int:
         f"memory {max(r['peak_device_bytes'] for r in rows)} bytes over the three steps")
     del watched
 
-    # determinism: one step's loss and gradients twice from the same state
+    # determinism: one step's loss and gradients twice from the same state;
+    # the first run also records the layout of the cotangent each B6 call gets
     batch = {"tokens": torch.as_tensor(pipe.batch(3), dtype=torch.int64, device=device)}
     names = ["/".join(map(str, path)) for path, _ in leaves_with_paths(state.params)]
     runs = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        grads, metrics = loss_and_grads(state.params, batch, cfg, tcfg.z_loss)
-        torch.cuda.synchronize()
-        fwd_bwd_s = time.perf_counter() - t0
+    backward = ops._LruScan.backward
+    cotangents = []
+
+    def recording_backward(ctx, g):
+        cotangents.append((tuple(g.shape), tuple(g.stride()), g.is_contiguous()))
+        return backward(ctx, g)
+
+    for i in range(2):
+        if i == 0:
+            ops._LruScan.backward = staticmethod(recording_backward)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grads, metrics = loss_and_grads(state.params, batch, cfg, tcfg.z_loss)
+            torch.cuda.synchronize()
+            fwd_bwd_s = time.perf_counter() - t0
+        finally:
+            ops._LruScan.backward = backward
         sums = torch.stack([torch.stack([torch.sum(g.float()), torch.sum(torch.square(g.float()))]) for g in grads])
         runs.append((metrics["loss"], global_norm(grads), sums))
         del grads, metrics
+    log(f"training slice: the {len(cotangents)} B6 calls of a backward got cotangents "
+        f"{sorted(set(cotangents))}: {sum(not c[2] for c in cotangents)} not contiguous (those are copied "
+        f"by g.contiguous() before the launch)")
+    check(len(cotangents) == n_rglru, f"{len(cotangents)} B6 calls in one backward, not {n_rglru}")
     log(f"training slice: forward and backward alone (loss_and_grads, the step without clipping and "
         f"AdamW) {fwd_bwd_s!r} s, against the warm step's {warm['wall_s']!r} s")
     (loss1, gn1, s1), (loss2, gn2, s2) = runs
@@ -2034,11 +2222,36 @@ def run_training_slice(device, profile_run: bool = False) -> int:
         f"{float(gn2)!r}; " + ("bitwise equal, loss, norm and every gradient leaf's sum and sum of squares"
                                if same else f"NOT bitwise equal; gradient leaves that differ: {differ}"))
     check(math.isfinite(float(loss1)) and math.isfinite(float(gn1)), "determinism run: non-finite")
+    per = step_kernel_us(lambda: step_fn(state, batch), ("lru_chunk_bwd", "lru_chunk_onepass"))
+    log(f"training slice: one warm step under the profiler (CUDA activity only): B6 (lru_chunk_bwd) "
+        f"{per['lru_chunk_bwd'][0]} launches, {per['lru_chunk_bwd'][1]!r} us of device time a launch; B5 "
+        f"(lru_chunk_onepass) {per['lru_chunk_onepass'][0]} launches, {per['lru_chunk_onepass'][1]!r} us a launch")
+    check(per["lru_chunk_bwd"][0] == n_rglru, f"the profiled step ran {per['lru_chunk_bwd'][0]} B6 kernels")
     if profile_run:
         profile_call(f"train step 1 x {TRAIN_SEQ}", lambda: step_fn(state, batch))
     del state, runs, s1, s2
     torch.cuda.empty_cache()
     return total_bwd
+
+
+def step_kernel_us(fn, markers) -> dict[str, tuple[int, float]]:
+    """Run ``fn()`` once under `torch.profiler` (CUDA activity only) and
+    return, for each marker, the number of kernels whose name holds it and
+    their mean device microseconds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = {m: [] for m in markers}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for m in markers:
+                if m in e.name:
+                    found[m].append(e.time_range.elapsed_us())
+    return {m: (len(us), sum(us) / max(len(us), 1)) for m, us in found.items()}
 
 
 def profile_solve(label: str, problem, **opts) -> None:

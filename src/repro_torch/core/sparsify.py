@@ -487,11 +487,14 @@ def _ell_from_mask(mask, probs, tiles, scale, width: int, *, split: bool):
 
 def _for_cuda(sk: BlockEllKernel) -> BlockEllKernel:
     """A CUDA sketch gets, once, what its kernels read: the float32 tiles,
-    int32 column ids and the column lists of ``K~^T u``; and the checks that
-    depend on the sketch alone run here, once, not at each launch: every
-    valid slot's column id lies in ``[0, m/Bk)`` and ``row_ptr`` is a
-    non-decreasing cover of the ELL rows (else `IndexError`). CPU sketches
-    come back as they are."""
+    int32 column ids and valid counts, and the column lists of ``K~^T u``;
+    and the checks that depend on the sketch alone run here, once, not at
+    each launch: ``row_ptr`` is a non-decreasing cover of the ELL rows,
+    every valid count lies in ``[0, max_blocks]``, every valid slot's
+    column id in ``[0, m/Bk)``, and every slot past the valid ones holds a
+    zero tile with column id 0, so that ``K~ v``, which reads the valid
+    slots only, gives the sums of the walk over every slot (else
+    `IndexError`). CPU sketches come back as they are."""
     if sk.vals.device.type != "cuda":
         return sk
     ell_rows = sk.vals.shape[0]
@@ -500,8 +503,24 @@ def _for_cuda(sk: BlockEllKernel) -> BlockEllKernel:
         if not (rp.shape[0] == sk.n // sk.block + 1 and int(rp[0]) == 0 and int(rp[-1]) == ell_rows
                 and bool((torch.diff(rp) >= 0).all())):
             raise IndexError(f"row_ptr is not a non-decreasing cover of the {ell_rows} ELL rows")
-    sk = sk._replace(col_idx=sk.col_idx.to(torch.int32).contiguous())
-    return sk._replace(vals32=sk.vals.to(torch.float32).contiguous(), columns=block_ell_columns(sk))
+    vals32 = sk.vals.to(torch.float32).contiguous()
+    sk = sk._replace(col_idx=sk.col_idx.to(torch.int32).contiguous(), nblocks=sk.nblocks.to(torch.int32).contiguous())
+    _check_padding(sk, vals32)
+    return sk._replace(vals32=vals32, columns=block_ell_columns(sk))
+
+
+def _check_padding(sk: BlockEllKernel, vals32: torch.Tensor) -> None:
+    """`IndexError` unless ``sk.nblocks`` holds one count in ``[0,
+    max_blocks]`` for each ELL row and every slot past an ELL row's valid
+    ones holds a zero tile (in ``vals32``) with column id 0: the layout on
+    which ``K~ v`` over the valid slots alone gives the sums of the walk
+    over every slot."""
+    nb, ell_rows = sk.nblocks, sk.vals.shape[0]
+    if nb.shape != (ell_rows,) or bool(((nb < 0) | (nb > sk.max_blocks)).any()):
+        raise IndexError(f"nblocks is not one count in [0, {sk.max_blocks}] for each of the {ell_rows} ELL rows")
+    pad = torch.arange(sk.max_blocks, device=nb.device)[None, :] >= nb[:, None]
+    if bool((sk.col_idx[pad] != 0).any()) or bool((vals32.reshape(*pad.shape, -1).abs().amax(-1)[pad] != 0).any()):
+        raise IndexError("a slot past an ELL row's valid ones holds a column id other than 0 or a nonzero tile")
 
 
 def block_ell_columns(sk: BlockEllKernel) -> BlockEllColumns:
@@ -571,7 +590,8 @@ def block_ell_matvec(sk: BlockEllKernel, v: torch.Tensor, bad_index: torch.Tenso
     CPU sketches run the reference's gather + einsum in ``v``'s dtype (and
     a sorted segment sum over the ELL rows of a row-block, where it has
     several). CUDA sketches launch the block-ELL kernel on the float32 tiles
-    (`repro_torch.kernels.ops.block_ell_sketch_matvec`), which reads ``v``
+    and the valid slots alone (`repro_torch.kernels.ops.block_ell_sketch_matvec`
+    with ``nblocks``: the sums of every slot's walk), which reads ``v``
     and writes the output in ``v``'s dtype and sums in float32; the kernel
     sets ``bad_index`` (a zeroed (1,) int32 tensor) on an index out of
     range, or, without one, the call raises `IndexError`.
@@ -579,7 +599,7 @@ def block_ell_matvec(sk: BlockEllKernel, v: torch.Tensor, bad_index: torch.Tenso
     if sk.vals.device.type == "cuda":
         from repro_torch.kernels.ops import block_ell_sketch_matvec
 
-        return block_ell_sketch_matvec(_cuda_part(sk, "vals32"), sk.col_idx, v, sk.row_ptr, bad_index)
+        return block_ell_sketch_matvec(_cuda_part(sk, "vals32"), sk.col_idx, v, sk.row_ptr, bad_index, sk.nblocks)
     bk = sk.block
     gathered = v.reshape(sk.m // bk, bk)[sk.col_idx.long()]  # (ell_rows, max_blocks, Bk)
     out = torch.einsum("rkij,rkj->ri", sk.vals, gathered)

@@ -65,7 +65,7 @@ def column_lists(col_idx: torch.Tensor, nblocks: torch.Tensor, row_of_ell: torch
 
 
 def _launch_block_ell_matvec(vals, col_idx, v, row_ptr, out, bad_index, *, col_blocks: int,
-                             row_blocks_per_sketch: int) -> None:
+                             row_blocks_per_sketch: int, nblocks=None) -> None:
     """One counted ``K~ v`` launch on already-checked CUDA tensors:
     contiguous float32 tiles ``(ell_rows, maxb, Bk, Bk)``, int32 column ids
     ``(ell_rows, maxb)``, ``row_ptr`` None (one ELL row per row-block) or
@@ -74,12 +74,17 @@ def _launch_block_ell_matvec(vals, col_idx, v, row_ptr, out, bad_index, *, col_b
     flag that the kernel sets on a column id outside ``[0, col_blocks)`` or
     a ``row_ptr`` range outside the ELL rows. Output row-block ``r`` belongs
     to sketch ``r // row_blocks_per_sketch`` and reads that sketch's part of
-    ``v``. Runs on the current stream; raises if the launch is refused."""
+    ``v``. ``nblocks`` (int32 ``(ell_rows,)``, the valid slots at the start
+    of each ELL row, the rest zero tiles with column id 0) lets the kernel
+    read only the valid slots (the row layout's 16-byte tiles at Bk = 128,
+    up to 8 slots a row), with the sums of the walk over every slot, which
+    None asks for. Runs on the current stream; raises if the launch is
+    refused."""
     ell_rows, max_blocks, bk = vals.shape[0], vals.shape[1], vals.shape[2]
     launch(
         "block_ell_matvec", vals.device,
         vals.data_ptr(), col_idx.data_ptr(), v.data_ptr(),
-        None if row_ptr is None else row_ptr.data_ptr(),
+        None if row_ptr is None else row_ptr.data_ptr(), None if nblocks is None else nblocks.data_ptr(),
         out.shape[0] // bk, ell_rows, max_blocks, bk, col_blocks, row_blocks_per_sketch,
         int(v.dtype == torch.float64), out.data_ptr(), bad_index.data_ptr(),
     )

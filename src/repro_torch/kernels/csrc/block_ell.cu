@@ -16,8 +16,12 @@
 // b(r) = r / row_blocks_per_sketch is the sketch that row-block r belongs to
 // when B sketches are folded into the row-block axis (b = 0 for one
 // sketch), and ncb is a sketch's number of column blocks. Padded slots hold
-// zero tiles with column id 0 and are summed like the others. A column id
-// outside [0, ncb), or a row_ptr range outside [0, ell_rows), sets
+// zero tiles with column id 0. Given the valid counts nblocks (the solver's
+// launch), block_ell_bk128_valid reads only the valid slots, with the sums
+// of the walk over every slot (its note says why, and how an inf in v block
+// 0 still gives that walk's NaN); the other kernels sum every slot, padding
+// included, as the TPU kernel does. A column id outside [0, ncb), a row_ptr
+// range outside [0, ell_rows) or a valid count outside [0, max_blocks] sets
 // *bad_index and gives NaN; nothing is read out of bounds. This is the
 // function of the plain version repro_torch/kernels/ref.py::block_ell_matvec_ref.
 //
@@ -63,9 +67,10 @@
 // What bounds them on an H100: bytes. Each product needs every valid tile
 // once (175 of the 448 slots of the n = 8192, Bk = 128, max_blocks = 7 row
 // layout: 11.5 MB) and 2 float32 operations per element. K~^T u's kernel
-// reads just those; K~ v's reads every slot, the zero tiles that pad the
-// ELL rows too (29.4 MB), as the TPU kernel does. In the solve the two run
-// back to back on the same tiles, which fit the 50 MB L2. K~ v's design: a tile
+// reads just those, and so does K~ v's where the solver passes the valid
+// counts; the all-slot walk reads the zero tiles that pad the ELL rows too
+// (29.4 MB). In the solve the two run back to back on the same tiles, which
+// fit the 50 MB L2. K~ v's design over every slot: a tile
 // row is contiguous, so a warp's loads of one row coalesce (512 B at
 // Bk = 128), each lane keeps the loads of 4 slots of its warp's 2 rows in
 // flight, and the v blocks of the row-block's slots are staged once in
@@ -89,6 +94,7 @@ constexpr int kRowsPerWarp = 2;
 constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;  // tile rows of one block
 constexpr int kStageFloats = 8192;                    // 32 KB of staged v blocks
 constexpr int kSlotsInFlight = 4;                     // Bk = 128: slots loaded at once
+constexpr int kLoadsInFlight = 8;                     // Bk = 128, valid slots: tile-row loads a lane
 // tiles of one K~^T u work unit (kernels/block_ell.py::UNIT_TILES cuts the lists)
 constexpr int kUnitTiles = 2;
 
@@ -256,6 +262,136 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The float4 of lane `lane` in the tile rows row0, row0 + 8, ... (kRows of
+// them) of slots first .. first + kInFlight - 1 (zeros from slot nb on).
+template <int kRows, int kInFlight>
+__device__ __forceinline__ void load_tile_rows(float4 (&t)[kRows][kInFlight], const float* __restrict__ vals,
+                                               int64_t first, int nb, int row0, int lane) {
+  constexpr int kBk = 128;
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int64_t row = (first + u) * kBk + row0 + kWarps * q;
+      t[q][u] = u < nb ? __ldg(reinterpret_cast<const float4*>(vals + row * kBk) + lane)
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+}
+
+// The rows of block_ell_bk128_valid with kRows tile rows a warp: their
+// tile rows' loads go out before the barrier that waits for the staged v
+// blocks, and each row sums its slots as block_ell_bk128 does.
+template <typename T, int kRows>
+__device__ __forceinline__ void valid_rows(const float* __restrict__ vals, const float4* vs, int64_t r,
+                                           int64_t first, int nb, int pad_bad, bool nan_rows,
+                                           T* __restrict__ out) {
+  constexpr int kBk = 128;
+  constexpr int kInFlight = kLoadsInFlight / kRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row0 = blockIdx.y * (kWarps * kRows) + warp;
+  float4 t[kRows][kInFlight];
+  load_tile_rows<kRows, kInFlight>(t, vals, first, nb, row0, lane);
+  nan_rows |= __syncthreads_or(pad_bad) != 0;  // the v blocks are staged
+  float acc[kRows];
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    acc[q] = 0.0f;
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      if (u < nb) {  // the same for the whole block
+        const float4 w = vs[u * (kBk / 4) + lane];
+        float p = t[q][u].x * w.x;
+        p = fmaf(t[q][u].y, w.y, p);
+        p = fmaf(t[q][u].z, w.z, p);
+        p = fmaf(t[q][u].w, w.w, p);
+        acc[q] += warp_sum(p);
+      }
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int q = 0; q < kRows; ++q)
+      out[r * kBk + row0 + kWarps * q] = nan_rows ? static_cast<T>(NAN) : static_cast<T>(acc[q]);
+  }
+}
+
+// K~ v at Bk = 128 over the valid slots alone: the row layout (one ELL row
+// a row-block) with its valid counts nblocks and at most kLoadsInFlight
+// slots a row. Row-block r holds nb = nblocks[r] valid tiles (at n = 8192,
+// most hold 2, a few all 7), so a warp takes as many tile rows (4, 2 or 1)
+// as keep rows x nb within kLoadsInFlight loads a lane: every warp sums its
+// rows in one round of loads, the heaviest row-block with 16 blocks of 8
+// rows, the lightest with 4 of 32; the blocks a row-block does not need
+// return at once. Two round trips to memory: first the count, the ELL
+// row's column ids and v block 0, all independent; then the valid slots' v
+// blocks (staged in shared memory) and the warp's tile rows.
+//
+// The padding slots it skips hold zero tiles with column id 0 (the
+// sketch's layout, checked once when the sketch is built), whose terms
+// sum_j 0 * v_j over v block 0 the all-slot walk adds. For finite v each is
+// +-0, and adding +-0 leaves every sum as it was: a sum starts at +0, and
+// round-to-nearest gives -0 only from two -0 operands, so not even the sign
+// of a zero moves (-0 against +0 is the one difference torch.equal would
+// not see). Where v block 0 holds an inf or a NaN (after the rounding to
+// float32 that staging applies), the all-slot walk makes every row of a
+// row-block with padding NaN, and so does this kernel.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    block_ell_bk128_valid(const float* __restrict__ vals, const int32_t* __restrict__ col_idx,
+                          const T* __restrict__ v, const int32_t* __restrict__ nblocks, int64_t max_blocks,
+                          int64_t ncb, int64_t row_blocks_per_sketch, T* __restrict__ out,
+                          int* __restrict__ bad_index) {
+  constexpr int kBk = 128;
+  constexpr int kPerThread = kLoadsInFlight * kBk / kThreads;  // staged v values a thread
+  __shared__ float4 vs[kLoadsInFlight * kBk / 4];
+  const int64_t r = blockIdx.x;
+  const int64_t first = r * max_blocks;
+  const int64_t v_block0 = (r / row_blocks_per_sketch) * ncb;
+  // round trip 1
+  int nb = nblocks[r];
+  int64_t c[kPerThread];
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const int s = (threadIdx.x + i * kThreads) / kBk;
+    c[i] = s < max_blocks ? col_idx[first + s] : 0;
+  }
+  const float v0 = threadIdx.x < kBk ? to_f32(v[v_block0 * kBk + threadIdx.x]) : 0.0f;
+  bool nan_rows = false;
+  if (nb < 0 || nb > max_blocks) {
+    if (threadIdx.x == 0) *bad_index = 1;
+    nan_rows = true;
+    nb = 0;
+  }
+  const int rows = nb <= kLoadsInFlight / 4 ? 4 : nb <= kLoadsInFlight / 2 ? 2 : 1;
+  if (blockIdx.y * kWarps * rows >= kBk) return;  // the whole block: the row-block needs fewer
+  // round trip 2: the valid slots' v blocks, then (in valid_rows) the tile rows
+  float* vsf = reinterpret_cast<float*>(vs);
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const int tt = threadIdx.x + i * kThreads;
+    const int s = tt / kBk;
+    if (s < nb) {
+      if (c[i] < 0 || c[i] >= ncb) {
+        if (tt % kBk == 0) *bad_index = 1;
+        vsf[tt] = NAN;
+      } else {
+        vsf[tt] = to_f32(v[(v_block0 + c[i]) * kBk + tt % kBk]);
+      }
+    }
+  }
+  // |x| <= FLT_MAX is false for an inf and a NaN
+  const int pad_bad = nb < max_blocks && !(fabsf(v0) <= 3.402823466e38f);
+  if (rows == 4) {
+    valid_rows<T, 4>(vals, vs, r, first, nb, pad_bad, nan_rows, out);
+  } else if (rows == 2) {
+    valid_rows<T, 2>(vals, vs, r, first, nb, pad_bad, nan_rows, out);
+  } else {
+    valid_rows<T, 1>(vals, vs, r, first, nb, pad_bad, nan_rows, out);
+  }
+}
+
 // The list entries [*e0, *e1) of work unit q.
 __device__ __forceinline__ void unit_entries(const int32_t* __restrict__ col_ptr,
                                              const int32_t* __restrict__ col_unit_ptr,
@@ -383,8 +519,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 int matvec(const float* vals, const int32_t* col_idx, const void* v, const int32_t* row_ptr,
-           int64_t row_blocks, int64_t ell_rows, int64_t max_blocks, int bk, int64_t col_blocks,
-           int64_t row_blocks_per_sketch, void* out, int* bad_index, cudaStream_t s) {
+           const int32_t* nblocks, int64_t row_blocks, int64_t ell_rows, int64_t max_blocks, int bk,
+           int64_t col_blocks, int64_t row_blocks_per_sketch, void* out, int* bad_index, cudaStream_t s) {
   int64_t stage = kStageFloats / bk;
   if (stage > max_blocks) stage = max_blocks;
   if (stage < 1) stage = 1;
@@ -393,7 +529,11 @@ int matvec(const float* vals, const int32_t* col_idx, const void* v, const int32
   const size_t smem = static_cast<size_t>(stage) * bk * sizeof(float);
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(out);
-  if (bk == 128 && reinterpret_cast<uintptr_t>(vals) % 16 == 0) {
+  const bool float4_tiles = bk == 128 && reinterpret_cast<uintptr_t>(vals) % 16 == 0;
+  if (float4_tiles && nblocks != nullptr && row_ptr == nullptr && max_blocks <= kLoadsInFlight) {
+    block_ell_bk128_valid<T><<<dim3(grid.x, 128 / kWarps), kThreads, 0, s>>>(
+        vals, col_idx, vt, nblocks, max_blocks, col_blocks, row_blocks_per_sketch, ot, bad_index);
+  } else if (float4_tiles) {
     block_ell_bk128<T><<<grid, kThreads, smem, s>>>(vals, col_idx, vt, row_ptr, ell_rows, max_blocks,
                                                     col_blocks, row_blocks_per_sketch,
                                                     static_cast<int>(stage), ot, bad_index);
@@ -439,25 +579,30 @@ extern "C" {
 // cudaError_t (0 = success). Pointers are device pointers: vals is
 // (ell_rows, max_blocks, bk, bk) contiguous float32, col_idx is
 // (ell_rows, max_blocks) int32, row_ptr is null or (row_blocks + 1,) int32,
-// v holds col_blocks * bk values for each sketch (row_blocks /
+// nblocks is null or (ell_rows,) int32, the valid slots at the start of
+// each ELL row, the rest zero tiles with column id 0 (read as a hint: with
+// it, the float4 tiles of a row layout with max_blocks <= kLoadsInFlight
+// take block_ell_bk128_valid, every other launch walks every slot, with the
+// same sums), v holds col_blocks * bk values for each sketch (row_blocks /
 // row_blocks_per_sketch of them) and out (row_blocks * bk,) values, both
 // float64 when f64 is 1 and float32 when it is 0, and bad_index is one
 // int32 that the caller zeroed: the kernel sets it to 1 if a column id lies
-// outside [0, col_blocks) or a row_ptr range outside [0, ell_rows). bk
+// outside [0, col_blocks), a row_ptr range outside [0, ell_rows) or (in
+// block_ell_bk128_valid) a valid count outside [0, max_blocks]. bk
 // above 8192 (one v block beyond the 32 KB stage) is refused with
 // cudaErrorInvalidValue.
 int block_ell_matvec_launch(const float* vals, const int32_t* col_idx, const void* v,
-                            const int32_t* row_ptr, int64_t row_blocks, int64_t ell_rows,
-                            int64_t max_blocks, int bk, int64_t col_blocks,
+                            const int32_t* row_ptr, const int32_t* nblocks, int64_t row_blocks,
+                            int64_t ell_rows, int64_t max_blocks, int bk, int64_t col_blocks,
                             int64_t row_blocks_per_sketch, int f64, void* out, int* bad_index,
                             void* stream) {
   if (row_blocks <= 0 || bk <= 0) return static_cast<int>(cudaSuccess);
   if (bk > kStageFloats || row_blocks_per_sketch <= 0 || row_blocks > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f64 ? matvec<double>(vals, col_idx, v, row_ptr, row_blocks, ell_rows, max_blocks, bk,
+  return f64 ? matvec<double>(vals, col_idx, v, row_ptr, nblocks, row_blocks, ell_rows, max_blocks, bk,
                               col_blocks, row_blocks_per_sketch, out, bad_index, s)
-             : matvec<float>(vals, col_idx, v, row_ptr, row_blocks, ell_rows, max_blocks, bk,
+             : matvec<float>(vals, col_idx, v, row_ptr, nblocks, row_blocks, ell_rows, max_blocks, bk,
                              col_blocks, row_blocks_per_sketch, out, bad_index, s);
 }
 

@@ -11,7 +11,7 @@ unchanged tree is loaded as it is.
 Every ``<name>_launch`` function of the library launches one kernel on the
 stream it is given (its last argument; the online ones over P > 1 column
 slices and ``block_ell_rmatvec`` a second that combines the partials;
-``lru_scan_fwd`` a memset of its flags first), allocates nothing, and returns its
+``lru_scan_fwd`` and ``lru_scan_bwd`` a memset of their flags first), allocates nothing, and returns its
 ``cudaError_t``; `launch` passes PyTorch's current stream, raises on a code
 other than 0 and counts the launch in `LAUNCHES`.
 """
@@ -49,16 +49,16 @@ SIGNATURES = {
     "online_matvec": (_P, _P, _P, _I64, _I64, _INT, _F32, _INT, _F32, _INT, _P, _P, _P),
     # x, y, g, n, m, d, eps, wfr, eta, slices, part, out, stream
     "online_lse": (_P, _P, _P, _I64, _I64, _INT, _F32, _INT, _F32, _INT, _P, _P, _P),
-    # vals, col_idx, v, row_ptr, row_blocks, ell_rows, max_blocks, bk, col_blocks,
+    # vals, col_idx, v, row_ptr, nblocks, row_blocks, ell_rows, max_blocks, bk, col_blocks,
     # row_blocks_per_sketch, f64, out, bad_index, stream
-    "block_ell_matvec": (_P, _P, _P, _P, _I64, _I64, _I64, _INT, _I64, _I64, _INT, _P, _P, _P),
+    "block_ell_matvec": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _I64, _I64, _INT, _P, _P, _P),
     # vals, tile, urow, col_ptr, col_unit_ptr, u, units, tiles, u_blocks, bk, col_blocks,
     # f64, part, out, bad_index, stream
     "block_ell_rmatvec": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _I64, _INT, _P, _P, _P, _P),
     # a, b, h, batch, seq, width, chunk, part, stream
     "lru_scan_fwd": (_P, _P, _P, _I64, _I64, _I64, _I64, _P, _P),
-    # a, h, g, da (or null), db, batch, seq, width, stream
-    "lru_scan_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    # a, h, g, da (or null), db, batch, seq, width, chunk, part, stream
+    "lru_scan_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P),
 }
 
 #: kernel name -> number of launches since the last `reset_launch_counts`
@@ -143,9 +143,13 @@ def load() -> ctypes.CDLL:
             # n, m, d, wfr, lse -> the column slices of an online launch
             lib.online_slices.argtypes = [_I64, _I64, _INT, _INT, _INT]
             lib.online_slices.restype = ctypes.c_int
-            # batch, seq, width -> the chunk length of a forward LRU scan
-            lib.lru_scan_chunk.argtypes = [_I64, _I64, _I64]
-            lib.lru_scan_chunk.restype = _I64
+            # batch, seq, width -> the chunk length of a forward and of a backward LRU scan
+            for rule in (lib.lru_scan_chunk, lib.lru_scan_bwd_chunk):
+                rule.argtypes = [_I64, _I64, _I64]
+                rule.restype = _I64
+            # backward (0/1), chunk -> the LRU scan's blocks an SM holds at once
+            lib.lru_scan_blocks_per_sm.argtypes = [_INT, _I64]
+            lib.lru_scan_blocks_per_sm.restype = _INT
             _lib = lib
         return _lib
 

@@ -318,21 +318,26 @@ def _path_dtype(t: torch.Tensor) -> torch.Tensor:
 
 
 def block_ell_sketch_matvec(vals32: torch.Tensor, col_idx: torch.Tensor, v: torch.Tensor,
-                            row_ptr: torch.Tensor | None, bad_index: torch.Tensor | None) -> torch.Tensor:
+                            row_ptr: torch.Tensor | None, bad_index: torch.Tensor | None,
+                            nblocks: torch.Tensor) -> torch.Tensor:
     """``K~ v`` as the block-ELL solver calls it on a CUDA sketch: one
     counted launch and nothing else. It takes what was made and checked
     once, when the sketch was built (`repro_torch.core.sparsify`: the
-    float32 tiles, int32 column ids in range, the ``row_ptr`` cover), and
-    checks none of it again. ``v`` float32 or float64 is read as it is, and the output comes
-    in its dtype (the bits of a cast to float32, the float32 kernel and a
-    cast back); ``bad_index`` as in `block_ell_matvec`."""
+    float32 tiles, int32 column ids in range, the ``row_ptr`` cover, the
+    int32 valid counts ``nblocks`` with zero tiles and column id 0 past
+    them), and checks none of it again. On the row layout's 16-byte tiles
+    at Bk = 128, up to 8 slots a row, the kernel reads only the valid slots;
+    either way the sums are the walk's over every slot. ``v`` float32 or
+    float64 is read as it is, and the output
+    comes in its dtype (the bits of a cast to float32, the float32 kernel
+    and a cast back); ``bad_index`` as in `block_ell_matvec`."""
     vt = _path_dtype(v)
     bk = vals32.shape[-1]
     rows = vals32.shape[0] if row_ptr is None else row_ptr.shape[0] - 1
     out = torch.empty(rows * bk, dtype=vt.dtype, device=vt.device)
     flag = torch.zeros(1, dtype=torch.int32, device=vt.device) if bad_index is None else bad_index
     _launch_block_ell_matvec(vals32, col_idx, vt, row_ptr, out, flag, col_blocks=vt.shape[0] // bk,
-                             row_blocks_per_sketch=max(rows, 1))
+                             row_blocks_per_sketch=max(rows, 1), nblocks=nblocks)
     if bad_index is None and bool(flag):  # reading the flag waits for the launch
         raise IndexError("block_ell_sketch_matvec: an index of the sketch out of range")
     return out if out.dtype == v.dtype else out.to(v.dtype)

@@ -17,6 +17,12 @@ the JAX package on the same numpy inputs.
   plain version `block_ell_rmatvec_ref` and an emulation of the kernel's
   work units and fixed-order combine in float32 torch, against the float64
   CPU path and the reference's scatter at the kernel tolerance above.
+* ``K~ v`` over the valid slots alone (the solver's launch, with the
+  sketch's ``nblocks``): the kernel's walk emulated in float32 torch is
+  bitwise the walk over every slot for finite v (rows with no valid slot,
+  a ``row_ptr`` layout, two folded sketches), and gives NaN exactly where
+  the all-slot walk and the plain version do when a sketch's v block 0
+  holds an inf or a NaN; the once-per-sketch check of that layout.
 """
 import math
 import re
@@ -611,3 +617,171 @@ def test_kernel_rmatvec_arithmetic_matches_plain_version(bk, nrb, maxb, ncb):
     torch.testing.assert_close(got, plain, **KERNEL_TOL)
     torch.testing.assert_close(got, tsp.block_ell_rmatvec(sk, ut).to(torch.float32), **KERNEL_TOL)
     assert bool((got[-bk:] == 0).all()) and bool((plain[-bk:] == 0).all())
+
+
+# --------------------------------------------------------------------------
+# K~ v over the valid slots alone: the kernel's walk with the sketch's
+# nblocks, emulated in float32 torch
+# --------------------------------------------------------------------------
+
+
+def _lane_sums(rows, w):
+    """Each tile row of ``rows`` (R, Bk) against the staged v block ``w``
+    as a warp sums it: lane l adds its columns' products in order (4l..4l+3
+    at Bk = 128, else l, l + 32, ...), then the fixed butterfly over the 32
+    lanes; float32, an FMA as a product and a sum."""
+    nrows, bk = rows.shape
+    prod = rows * w
+    lanes = torch.zeros((nrows, 32), dtype=torch.float32)
+    for lane in range(32):
+        cols = range(4 * lane, 4 * lane + 4) if bk == 128 else range(lane, bk, 32)
+        for j, col in enumerate(cols):
+            lanes[:, lane] = prod[:, col] if (bk == 128 and j == 0) else lanes[:, lane] + prod[:, col]
+    idx = torch.arange(32)
+    for offset in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, idx ^ offset]
+    return lanes[:, 0]
+
+
+def _emulated_matvec(vals, col_idx, v, *, row_ptr=None, nblocks=None, row_blocks_per_sketch=None):
+    """``K~ v`` as the kernels walk it: for each output row-block, its ELL
+    rows in order and in each every slot (``nblocks`` None) or the valid
+    ones alone, one tile's `_lane_sums` against the staged v block added to
+    the row's sum slot by slot (a warp's share of rows does not enter a
+    row's sum); row-block r reads sketch r // ``row_blocks_per_sketch``'s
+    part of ``v``. The valid walk makes every row of a row-block with
+    padding NaN where that sketch's v block 0 holds an inf or a NaN, as the
+    padding's 0 * inf makes the walk over every slot. On the card the valid
+    walk is ``block_ell_bk128_valid`` (the row layout); other layouts walk
+    every slot, which the tests show gives the same sums."""
+    ell_rows, maxb, bk, _ = vals.shape
+    nrb = ell_rows if row_ptr is None else len(row_ptr) - 1
+    per_sketch = row_blocks_per_sketch or nrb
+    vb = v.to(torch.float32).reshape(-1, bk)
+    ncb = vb.shape[0] // -(-nrb // per_sketch)
+    out = torch.empty((nrb, bk), dtype=torch.float32)
+    for r in range(nrb):
+        e0, e1 = (r, r + 1) if row_ptr is None else (int(row_ptr[r]), int(row_ptr[r + 1]))
+        block0 = (r // per_sketch) * ncb
+        acc = torch.zeros(bk, dtype=torch.float32)
+        padded = False
+        for e in range(e0, e1):
+            count = maxb if nblocks is None else int(nblocks[e])
+            padded |= count < maxb
+            for k in range(count):
+                acc = acc + _lane_sums(vals[e, k].to(torch.float32), vb[block0 + int(col_idx[e, k])])
+        if nblocks is not None and padded and not bool(torch.isfinite(vb[block0]).all()):
+            acc = torch.full_like(acc, math.nan)
+        out[r] = acc
+    return out.reshape(-1)
+
+
+def _padded_layout(bk, maxb, ell_rows, ncb, seed, nblocks=None):
+    """Ragged valid counts (some 0, one full) with zero tiles and column id
+    0 past them, distinct column ids in a row, and v from N(0, 1), so that
+    padding terms are +0 and -0."""
+    rng = np.random.default_rng(seed)
+    if nblocks is None:
+        nblocks = rng.integers(0, maxb + 1, ell_rows)
+        nblocks[:2] = (0, maxb)
+    nblocks = np.asarray(nblocks, np.int32)
+    valid = np.arange(maxb)[None, :] < nblocks[:, None]
+    col_idx = np.stack([rng.permutation(ncb)[:maxb] for _ in range(ell_rows)])
+    col_idx = np.where(valid, col_idx, 0).astype(np.int32)
+    vals = np.where(valid[:, :, None, None], rng.standard_normal((ell_rows, maxb, bk, bk)), 0.0).astype(np.float32)
+    return vals, col_idx, nblocks
+
+
+@pytest.mark.parametrize("bk", [8, 128])
+def test_valid_slot_walk_is_bitwise_the_all_slot_walk(bk):
+    """Finite v: skipping the padding slots (rows with 0 valid slots among
+    them) leaves every sum's bits, and both walks agree with the plain
+    version at the kernel tolerance."""
+    maxb, nrb, ncb = 4, 7, 6
+    vals, col_idx, nblocks = _padded_layout(bk, maxb, nrb, ncb, seed=bk)
+    v = np.random.default_rng(bk + 1).standard_normal(ncb * bk).astype(np.float32)
+    tv, tci, tnb, tvec = _t(vals, col_idx, nblocks, v)
+    every = _emulated_matvec(tv, tci, tvec)
+    valid = _emulated_matvec(tv, tci, tvec, nblocks=tnb)
+    assert torch.equal(valid, every) and bool((valid[:bk] == 0).all())
+    assert torch.equal(torch.signbit(valid), torch.signbit(every))
+    plain = ref.block_ell_matvec_ref(tv, tci, tvec.reshape(-1, bk)).reshape(-1)
+    torch.testing.assert_close(valid, plain, **KERNEL_TOL)
+
+
+def test_valid_slot_walk_on_a_row_ptr_layout():
+    """Row-blocks of several ELL rows (one of none), padding in the last ELL
+    row of each, as the transposed layout lays them out."""
+    bk, maxb, ncb = 16, 3, 5
+    per_row = [2, 0, 1, 3]
+    counts = [maxb, 1, 2, maxb, maxb, 0]  # the last ELL row of each row-block padded
+    vals, col_idx, nblocks = _padded_layout(bk, maxb, sum(per_row), ncb, seed=3, nblocks=counts)
+    row_ptr = torch.tensor(np.concatenate([[0], np.cumsum(per_row)]), dtype=torch.int32)
+    v = np.random.default_rng(4).standard_normal(ncb * bk).astype(np.float32)
+    tv, tci, tnb, tvec = _t(vals, col_idx, nblocks, v)
+    every = _emulated_matvec(tv, tci, tvec, row_ptr=row_ptr)
+    valid = _emulated_matvec(tv, tci, tvec, row_ptr=row_ptr, nblocks=tnb)
+    assert torch.equal(valid, every)
+    plain = ref.block_ell_matvec_ref(tv, tci, tvec.reshape(-1, bk), row_ptr).reshape(-1)
+    torch.testing.assert_close(valid, plain, **KERNEL_TOL)
+    assert bool((valid[bk:2 * bk] == 0).all())  # the row-block of no ELL row
+
+
+def test_valid_slot_walk_on_two_folded_sketches():
+    """Two sketches folded into the row-block axis (the batched launch),
+    each reading its own part of v, with its own v block 0."""
+    bk, maxb, nrb, ncb = 8, 3, 4, 4
+    sketches = [_padded_layout(bk, maxb, nrb, ncb, seed=10 + i) for i in range(2)]
+    vals, col_idx, nblocks = (np.concatenate(parts) for parts in zip(*sketches))
+    v = np.random.default_rng(12).standard_normal((2, ncb * bk)).astype(np.float32)
+    tv, tci, tnb, tvec = _t(vals, col_idx, nblocks, v.reshape(-1))
+    every = _emulated_matvec(tv, tci, tvec, row_blocks_per_sketch=nrb)
+    valid = _emulated_matvec(tv, tci, tvec, nblocks=tnb, row_blocks_per_sketch=nrb)
+    assert torch.equal(valid, every)
+    plain = torch.cat([ref.block_ell_matvec_ref(*_t(vals[i * nrb:(i + 1) * nrb], col_idx[i * nrb:(i + 1) * nrb],
+                                                    v[i].reshape(-1, bk))).reshape(-1) for i in range(2)])
+    torch.testing.assert_close(valid, plain, **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("bad", [math.inf, -math.inf, math.nan])
+@pytest.mark.parametrize("folded", [False, True], ids=["one", "folded"])
+def test_valid_slot_walk_gives_nan_where_padding_meets_a_nonfinite_block0(bad, folded):
+    """v block 0 holding an inf (or a NaN): the all-slot walk and the plain
+    version add 0 * inf in every row of a row-block with padding; the valid
+    walk gives NaN in exactly those rows too (and in the second folded
+    sketch, whose block 0 is finite, nowhere it would not)."""
+    bk, maxb, nrb, ncb = 8, 3, 5, 4
+    sketches = [_padded_layout(bk, maxb, nrb, ncb, seed=20 + i) for i in range(2 if folded else 1)]
+    vals, col_idx, nblocks = (np.concatenate(parts) for parts in zip(*sketches))
+    v = np.random.default_rng(22).standard_normal((len(sketches), ncb * bk)).astype(np.float32)
+    v[0, 3] = bad
+    tv, tci, tnb, tvec = _t(vals, col_idx, nblocks, v.reshape(-1))
+    every = _emulated_matvec(tv, tci, tvec, row_blocks_per_sketch=nrb)
+    valid = _emulated_matvec(tv, tci, tvec, nblocks=tnb, row_blocks_per_sketch=nrb)
+    plain = torch.cat([ref.block_ell_matvec_ref(*_t(vals[i * nrb:(i + 1) * nrb], col_idx[i * nrb:(i + 1) * nrb],
+                                                    v[i].reshape(-1, bk))).reshape(-1) for i in range(len(sketches))])
+    padded = np.repeat(nblocks < maxb, bk)
+    first = torch.as_tensor(padded[:nrb * bk])
+    assert bool(first.any()) and bool(torch.isnan(valid[:nrb * bk][first]).all())
+    assert torch.equal(torch.isnan(valid), torch.isnan(every))
+    assert torch.equal(torch.isnan(valid), torch.isnan(plain))
+    finite = ~torch.isnan(every)
+    assert torch.equal(valid[finite], every[finite])
+
+
+def test_cuda_sketch_layout_check_refuses_what_the_valid_walk_cannot_skip():
+    """The check a CUDA sketch gets once (`sparsify._check_padding`): the
+    sampler's layouts pass; a count out of range, a nonzero padding tile or
+    a padding column id other than 0 raises."""
+    n, bk, K, tp, _ = _wfr_case()
+    uniforms = jax.random.uniform(jax.random.PRNGKey(3), tp.shape, dtype=tp.dtype)
+    sk = tsp.sparsify_block_ell_from_uniforms(*_t(uniforms, K, tp), float(n * 8), bk, 4)
+    for lay in (sk, sk.transposed):
+        tsp._check_padding(lay, lay.vals.to(torch.float32))
+    row = int(torch.nonzero(sk.nblocks < sk.max_blocks)[0])
+    for field, change in (("nblocks", lambda t: t.fill_(sk.max_blocks + 1)), ("nblocks", lambda t: t.fill_(-1)),
+                          ("vals", lambda t: t[row, -1, 0, 0].fill_(1.0)),
+                          ("col_idx", lambda t: t[row, -1].fill_(1))):
+        bad = sk._replace(**{field: change(getattr(sk, field).clone())})
+        with pytest.raises(IndexError):
+            tsp._check_padding(bad, bad.vals.to(torch.float32))

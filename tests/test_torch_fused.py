@@ -246,8 +246,9 @@ def test_library_signatures_match_the_cuda_sources():
     """No nvcc here: hold the ctypes declarations against the C launch
     functions that the sources export: name, number and type of every
     argument (the block-ELL pair with the f64 switch and K~^T u's column
-    lists; the chunked LRU forward with its chunk and scratch), and the
-    chunk rule the LRU launcher asks the library for."""
+    lists, and K~ v's valid counts; the chunked LRU forward and backward
+    with their chunk and scratch), and the chunk rule the LRU launchers ask
+    the library for."""
     declared = {}
     for src in sorted(library.CSRC.glob("*.cu")):
         text = src.read_text()

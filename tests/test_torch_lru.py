@@ -23,6 +23,13 @@ numpy inputs.
   rule and constants read from ``csrc/lru_scan.cu``, against `lru_scan_ref` and the reference's
   Pallas kernel in interpret mode: rtol = atol = 1e-5, the reference
   test's tolerance (float32 sums in another order).
+* The CUDA backward's chunked reverse arithmetic (each chunk's product of
+  the shifted a and its lam from 0, the carries in reverse chunk order, the
+  re-scan writing db and da), emulated the same way with the backward's
+  chunk rule (its own longest chunk, read from the source), against
+  ``jax.vjp`` of the reference's ``ops.lru_scan`` in interpret
+  mode and `lru_scan_bwd_ref`: rtol = atol = 1e-5; with da not wanted, db
+  keeps its bits.
 """
 import re
 
@@ -187,16 +194,17 @@ def test_lru_scan_takes_empty_sequences():
 def _source_constants() -> dict[str, int]:
     text = (library.CSRC / "lru_scan.cu").read_text()
     return {name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
-            for name in ("kMaxChunk", "kMinChunk", "kTargetWarps")}
+            for name in ("kMaxChunk", "kBwdMaxChunk", "kMinChunk", "kTargetWarps")}
 
 
-def _chunk_length(batch, seq, width):
-    """lru_scan_chunk of the source: the longest power of two from kMaxChunk
-    down to kMinChunk at which batch * ceil(width / 32) * ceil(seq / L)
-    warps reach kTargetWarps."""
+def _chunk_length(batch, seq, width, backward=False):
+    """lru_scan_chunk of the source (lru_scan_bwd_chunk with ``backward``):
+    the longest power of two from kMaxChunk (kBwdMaxChunk) down to
+    kMinChunk at which batch * ceil(width / 32) * ceil(seq / L) warps reach
+    kTargetWarps."""
     k = _source_constants()
     groups = batch * -(-width // 32)
-    chunk = k["kMaxChunk"]
+    chunk = k["kBwdMaxChunk" if backward else "kMaxChunk"]
     while chunk > k["kMinChunk"] and groups * -(-seq // chunk) < k["kTargetWarps"]:
         chunk //= 2
     return chunk
@@ -264,3 +272,116 @@ def test_chunked_forward_arithmetic_over_64_chunks():
     got = _emulated_chunked_scan(a, b, 32)
     _, h_want = _sequential64(a, b, 1)
     np.testing.assert_allclose(got.numpy(), h_want, **TOL)
+
+
+# --- the CUDA backward's chunked reverse arithmetic, emulated in float32 ----
+
+
+def _emulated_chunked_bwd(a, h, g, chunk):
+    """The backward launch's arithmetic: the shifted a_{t+1} (a_S = 0); for
+    each chunk but the first, from its end, the product A_c of the shifted
+    a and G_c, its lam_{t0} from 0; the inclusive carries lam_in(C-1) = 0,
+    lam_in(c-1) = A_c lam_in(c) + G_c, in reverse chunk order (a block reads
+    the one the block of the next chunk published); each chunk's reverse
+    recurrence from lam_in(c), writing db = lam and da = lam h_{t-1}
+    (h_{-1} = 0). ``h`` None: the gradient of a is not wanted, and h is not
+    read. Float32, an FMA as a product and a sum."""
+    a, g = torch.as_tensor(a), torch.as_tensor(g)
+    bsz, seq, width = a.shape
+    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+    chunks = -(-seq // chunk)
+    spans = [(c * chunk, min((c + 1) * chunk, seq)) for c in range(chunks)]
+    lam_in = {chunks - 1: torch.zeros(bsz, width)}
+    for c in range(chunks - 1, 0, -1):
+        prod, state = torch.ones(bsz, width), torch.zeros(bsz, width)
+        t0, t1 = spans[c]
+        for t in range(t1 - 1, t0 - 1, -1):
+            state = a_next[:, t] * state + g[:, t]
+            prod = prod * a_next[:, t]
+        lam_in[c - 1] = prod * lam_in[c] + state
+    db = torch.empty_like(a)
+    da = None if h is None else torch.empty_like(a)
+    for c, (t0, t1) in enumerate(spans):
+        lam = lam_in[c]
+        for t in range(t1 - 1, t0 - 1, -1):
+            lam = a_next[:, t] * lam + g[:, t]
+            db[:, t] = lam
+            if da is not None:
+                da[:, t] = lam * (torch.as_tensor(h)[:, t - 1] if t > 0 else 0.0)
+    return da, db
+
+
+# ragged S and W not a multiple of 32 (300 = 9 x 32 + 12 steps, 130 channels);
+# S shorter than one chunk; the reference test's other shapes
+BWD_SHAPES = [(1, 300, 130), (2, 20, 40), (2, 64, 32), (2, 512, 256)]
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("chunk", ["rule", 64])
+def test_chunked_backward_arithmetic_matches_the_reference(shape, chunk):
+    """The emulated reverse chunks against ``jax.vjp`` of the reference's
+    ``ops.lru_scan`` (its custom VJP over the backward Pallas kernel in
+    interpret mode) and against `lru_scan_bwd_ref`, at the reference test's
+    forward tolerance; with the chunk rule's length (read from the source)
+    and with chunks of 64."""
+    a, b = _inputs(shape, sum(shape) + 3)
+    g = np.random.default_rng(sum(shape) + 4).standard_normal(shape).astype(np.float32)
+    length = _chunk_length(*shape, backward=True) if chunk == "rule" else chunk
+    h = lru_scan_ref(torch.as_tensor(a), torch.as_tensor(b))
+    da, db = _emulated_chunked_bwd(a, h, g, length)
+    da_ref, db_ref = lru_scan_bwd_ref(torch.as_tensor(a), h, torch.as_tensor(g))
+    torch.testing.assert_close(db, db_ref, **TOL)
+    torch.testing.assert_close(da, da_ref, **TOL)
+    _, vjp = jax.vjp(lambda x, y: jops.lru_scan(x, y, True), jnp.asarray(a), jnp.asarray(b))
+    da_j, db_j = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(db.numpy(), np.asarray(db_j), **TOL)
+    np.testing.assert_allclose(da.numpy(), np.asarray(da_j), **TOL)
+
+
+def test_chunked_backward_arithmetic_over_64_chunks():
+    """64 chunks of 32 on a narrow width: 63 carries in reverse chunk order,
+    against the float64 reverse recurrence."""
+    a, b = _inputs((1, 2048, 8), 12)
+    g = np.random.default_rng(13).standard_normal((1, 2048, 8)).astype(np.float32)
+    _, h64 = _sequential64(a, b, 1)
+    da, db = _emulated_chunked_bwd(a, torch.as_tensor(h64, dtype=torch.float32), g, 32)
+    a64 = np.asarray(a, np.float64)
+    lam = np.zeros_like(h64)
+    nxt = np.zeros_like(h64[:, 0])
+    for t in range(2047, -1, -1):
+        nxt = g[:, t] + (a64[:, t + 1] * nxt if t + 1 < 2048 else 0.0)
+        lam[:, t] = nxt
+    h_prev = np.concatenate([np.zeros_like(h64[:, :1]), h64[:, :-1]], axis=1)
+    np.testing.assert_allclose(db.numpy(), lam, **TOL)
+    np.testing.assert_allclose(da.numpy(), lam * h_prev, **TOL)
+
+
+def test_chunked_backward_without_da_gives_the_same_db():
+    """da not wanted (h not read): db keeps its bits, and it matches the
+    reference's gradient of b."""
+    shape = (1, 300, 130)
+    a, b = _inputs(shape, 21)
+    g = np.random.default_rng(22).standard_normal(shape).astype(np.float32)
+    h = lru_scan_ref(torch.as_tensor(a), torch.as_tensor(b))
+    length = _chunk_length(*shape, backward=True)
+    da_none, db_alone = _emulated_chunked_bwd(a, None, g, length)
+    _, db = _emulated_chunked_bwd(a, h, g, length)
+    assert da_none is None and torch.equal(db_alone, db)
+    _, vjp = jax.vjp(lambda y: jops.lru_scan(jnp.asarray(a), y, True), jnp.asarray(b))
+    np.testing.assert_allclose(db_alone.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), **TOL)
+
+
+def test_backward_chunk_rule_at_the_paths_shapes():
+    """The backward's chunks are shorter: 128 steps at the train step's
+    shape (16 of them: 1,280 warps) and at the prefill's (256), half the
+    forward's shared memory a warp; the reference test shapes get the
+    shortest chunk. Its launch takes a chunk and a scratch as the
+    forward's does."""
+    k = _source_constants()
+    assert _chunk_length(1, 2048, 2560, backward=True) == 128
+    assert _chunk_length(1, 32768, 2560, backward=True) == 128
+    assert k["kMinChunk"] <= k["kBwdMaxChunk"] < k["kMaxChunk"] and k["kBwdMaxChunk"] % k["kMinChunk"] == 0
+    assert all(_chunk_length(*shape, backward=True) == k["kMinChunk"] for shape in SHAPES + [(2, 20, 40)])
+    text = (library.CSRC / "lru_scan.cu").read_text()
+    assert "int64_t lru_scan_bwd_chunk(int64_t batch, int64_t seq, int64_t width)" in text
+    assert library.SIGNATURES["lru_scan_bwd"][-3:] == library.SIGNATURES["lru_scan_fwd"][-3:]
