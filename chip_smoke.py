@@ -13,7 +13,11 @@ failure exits non-zero):
    the kernels' build;
 2. every kernel against its plain PyTorch version on the card, at the main
    paths' shapes, with its time, the plain version's time and its bound:
-   the gathered kernel at the sketch's k = 1.01e7 pairs; ``online_matvec``
+   the gathered kernel and its float64 cost-only mode at the sketch's k =
+   1.01e7 pairs (and WFR, d in GATHER_DIMS, float32 and float64 points, an
+   odd k, y apart from x, indices 8 bytes into their storage; two launches
+   and the sketch's unchecked entries bitwise the checked wrappers'; the
+   pack's layout; each kernel's device time by name); ``online_matvec``
    and ``online_lse`` at n = m = 2^17 (run (a)'s points), in a WFR case at
    n = m = 2^14 with half the pairs and one whole row blocked, and over the
    shapes of the reference's kernel tests; two launches must be bitwise
@@ -24,9 +28,14 @@ failure exits non-zero):
 3. the main path, ``solve(problem, method="spar_sink_mf")`` at n = 2^17
    (C1 measures, d = 5, float64, eps = 0.1, s = 4 s0(n)): (a) OT in the
    scaling domain, (b) OT with ``stabilize=True``, (c) UOT with masses 5/3
-   and lam = 0.5, then (a) again, which must be bitwise equal; the kernel's
-   launch counts are set to 0 just before each ``solve`` and read just after
-   it (each scaling-domain solve must launch the kernel exactly once);
+   and lam = 0.5, then (a) again, which must be bitwise equal; each sketch
+   is first built alone (wall, device time, peak memory); the launch counts
+   are set to 0 just before each ``solve`` and read just after it (each
+   scaling-domain solve must launch the gathered kernel exactly once, each
+   log-domain solve its cost-only mode once, and nothing else); each run's
+   value beside the earlier kernel's (`EARLIER_RUNS`); then (b)'s log
+   sketch with the plain float64 gather and with the cost-only kernel, in
+   turns (`compare_log_sketch`);
 4. accuracy at n = 8192: ``dense`` against ``log``, the mean relative
    error of ``spar_sink_mf`` against them over 4 seeds, and the block-wise
    objective of phase 5 validated against ``dense``;
@@ -95,11 +104,13 @@ failure exits non-zero):
 ``--profile`` also runs (a), one prefill, one serving decode step and one
 train step under `torch.profiler` and prints where their device time goes.
 ``--compare-with`` runs no phase but 1: it builds each other source (an
-earlier ``fused_sinkhorn.cu``, ``block_ell.cu`` or ``lru_scan.cu``, or a
-variant of the current one) apart and times its bare launches in turns
-with the current ones, by CUDA events and the profiler's device time
-(`compare_sources`, which also prints both online kernels' inner-loop SASS
-mix; `compare_block_ell`, both products; `compare_lru_scan`, B5 and B6).
+earlier ``fused_sinkhorn.cu``, ``block_ell.cu``, ``lru_scan.cu`` or
+``gather_kernel.cu``, or a variant of the current one) apart and times its
+bare launches in turns with the current ones, by CUDA events and the
+profiler's device time (`compare_sources`, which also prints both online
+kernels' inner-loop SASS mix; `compare_block_ell`, both products;
+`compare_lru_scan`, B5 and B6; `compare_gather`, B1 bare and as the sketch
+calls it, bitwise or not, with its loads and stores in the SASS).
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout, it exits non-zero before printing any result.
@@ -118,6 +129,7 @@ from pathlib import Path
 # H100 SXM peaks (NVIDIA data sheet) for the roofline bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12  # outside the tensor cores (NVIDIA data sheet)
 # exponentials (MUFU.EX2) per clock per SM on compute capability 9.0 (CUDA
 # C++ Programming Guide, arithmetic instruction throughput); times the SMs
 # and the maximum SM clock that nvidia-smi reports
@@ -125,6 +137,12 @@ SFU_PER_CLOCK_PER_SM = 16
 
 K_TOL = dict(rtol=2e-3, atol=1e-6)  # the reference kernel tests' tolerances
 C_TOL = dict(rtol=2e-4, atol=1e-5)
+# the float64 cost-only kernel against the float64 plain version: 1e-13
+# relative, plus COST64_ULPS ulps of |x|^2 + |y|^2 carried through the cost
+# (`cost64_excess`: the two sum over d in different orders)
+COST64_RTOL, COST64_ULPS = 1e-13, 64
+# the point dimensions of phase 2's gathered-kernel cases
+GATHER_DIMS = (1, 3, 5, 8, 13)
 MATVEC_TOL = dict(rtol=2e-4, atol=2e-5)
 LSE_TOL = dict(rtol=2e-4, atol=5e-4)
 # column slices P over which phase 2 times the bare online launches
@@ -216,6 +234,30 @@ def device_ms(fn, reps: int = 20) -> float | None:
     return total_us / reps / 1e3 if total_us > 0 else None
 
 
+def device_ms_by_kernel(fn, reps: int = 20) -> dict[str, float]:
+    """The mean device milliseconds of each kernel that ``fn()`` launches,
+    by kernel name (shortened), from `torch.profiler` over ``reps`` calls:
+    a kernel's time over the launches the profiler recorded (where that
+    is not ``reps``, the name says how many it recorded)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            name = re.sub(r"^.*?(\w+(?:<[^>]*>)?)\(.*$", r"\1", e.key)[:60]
+            out[name if e.count == reps else f"{name} ({e.count} of {reps} launches recorded)"] = (
+                e.self_device_time_total / e.count / 1e3)
+    return out
+
+
 def ptxas_report(log_text: str, marker: str) -> dict[str, dict[str, int]]:
     """Registers, static shared memory, stack frame and spill bytes of
     every kernel whose (mangled) name holds ``marker``, from the build's
@@ -272,86 +314,211 @@ def _max_abs_err(out, ref) -> float:
     return float(torch.max(torch.abs(out[finite] - ref[finite]))) if bool(finite.any()) else 0.0
 
 
-def check_gathered_kernel(n: int, k: int, d: int, device) -> dict:
+def cost64_excess(x, y, rows, cols, c64, c64_r, cost: str, eta: float) -> float:
+    """The largest ``|C - C_ref| / (COST64_RTOL |C_ref| + COST64_ULPS eps64
+    (|x|^2 + |y|^2)_max |dC/dsq|)`` over the finite plain costs: the kernel
+    sums over d in its own order, torch in another, so sq = |x|^2 + |y|^2 -
+    2 <x, y> differs by a few ulps of the norms (not of sq); the cost
+    carries that through its derivative (1 for sqeuclidean; tan z /
+    (2 eta sqrt(sq)) for WFR, large near the blocked range). At most 1
+    passes."""
     import torch
 
-    from repro_torch.kernels.gather_kernel import _launch_gathered_kernel
-    from repro_torch.kernels.ops import gathered_kernel
-    from repro_torch.kernels.ref import gathered_kernel_ref
+    from repro_torch.kernels.ref import gathered_cost_ref
+
+    scale = float((x.double() ** 2).sum(1).max() + (y.double() ** 2).sum(1).max())
+    finite = torch.isfinite(c64_r)
+    ref = c64_r[finite]
+    slope = torch.ones_like(ref)
+    if cost == "wfr":
+        dist = torch.sqrt(gathered_cost_ref(x, y, rows, cols)[finite] + 1e-30)
+        z = torch.clamp_max(dist / (2.0 * eta), math.pi / 2.0)
+        slope = torch.tan(z) / (2.0 * eta * dist)
+    tol = COST64_RTOL * ref.abs() + COST64_ULPS * torch.finfo(torch.float64).eps * scale * slope
+    return float(((c64[finite] - ref).abs() / tol).max()) if ref.numel() else 0.0
+
+
+def _gathered_case(x, y, rows, cols, *, eps: float, cost: str, eta: float) -> float:
+    """Both gathered kernels on one case, checked (`ops.gathered_kernel`,
+    `ops.gathered_cost`) and unchecked (the sketch's entries), against their
+    plain versions: K and C at K_TOL / C_TOL, the float64 costs within
+    `cost64_excess`'s rounding-level tolerance,
+    blocked WFR pairs exactly (0, +inf) and +inf; two launches and the two
+    entries bitwise equal. Returns the largest error."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import gathered_cost_ref, gathered_kernel_ref
+
+    k_e, c_e = ops.gathered_kernel(x, y, rows, cols, eps=eps, cost=cost, eta=eta)
+    k_s, c_s = ops.gathered_sketch_kernel(x, y, rows, cols, eps=eps, cost=cost, eta=eta)
+    c64 = ops.gathered_cost(x, y, rows, cols, cost=cost, eta=eta)
+    c64_s = ops.gathered_sketch_cost(x, y, rows, cols, cost=cost, eta=eta)
+    k_r, c_r = gathered_kernel_ref(x, y, rows, cols, eps=eps, cost=cost, eta=eta)
+    c64_r = gathered_cost_ref(x, y, rows, cols, cost=cost, eta=eta)
+    torch.cuda.synchronize()
+    what = f"{cost} d={x.shape[1]} {x.dtype} k={rows.shape[0]}"
+    check(c64.dtype == torch.float64 and k_e.dtype == c_e.dtype == torch.float32, f"{what}: output types")
+    for a, b, name in ((k_e, k_s, "K"), (c_e, c_s, "C"), (c64, c64_s, "float64 C")):
+        check(bool(torch.equal(a, b)), f"{what}: the sketch's {name} is not bitwise the checked wrapper's")
+    blocked = torch.isinf(c_r)
+    check(bool(torch.equal(torch.isinf(c_e), blocked)) and bool(torch.equal(torch.isinf(c64), torch.isinf(c64_r))),
+          f"{what}: the blocked set differs from the plain version")
+    check(bool((k_e[blocked] == 0).all()) and bool(torch.isposinf(c_e[blocked]).all())
+          and bool(torch.isposinf(c64[torch.isinf(c64_r)]).all()), f"{what}: blocked pairs are not (0, +inf)")
+    torch.testing.assert_close(k_e[~blocked], k_r[~blocked], **K_TOL)
+    torch.testing.assert_close(c_e[~blocked], c_r[~blocked], **C_TOL)
+    finite = torch.isfinite(c64_r)
+    excess = cost64_excess(x, y, rows, cols, c64, c64_r, cost, eta)
+    check(excess <= 1.0, f"{what}: the float64 costs miss the plain version's by {excess!r} x the tolerance")
+    again = ops.gathered_sketch_kernel(x, y, rows, cols, eps=eps, cost=cost, eta=eta)
+    again64 = ops.gathered_sketch_cost(x, y, rows, cols, cost=cost, eta=eta)
+    check(bool(torch.equal(again[0], k_s)) and bool(torch.equal(again[1], c_s)) and bool(torch.equal(again64, c64_s)),
+          f"{what}: two launches are not bitwise equal")
+    return max(_max_abs_err(k_e, k_r), _max_abs_err(c_e, c_r), _max_abs_err(c64, c64_r))
+
+
+def check_gathered_kernel(n: int, k: int, d: int, device) -> list[dict]:
+    """Phase 2 for B1 and its float64 cost-only mode: both against their
+    plain versions at the main path's shape, with WFR's blocked pairs, over
+    d in GATHER_DIMS, float32 and float64 points, k not a multiple of the
+    pairs a thread, y apart from x and indices 8 bytes into their storage;
+    the pack's layout; the range checks; then the times, the device time of
+    each kernel by name and the registers. Returns the two ``kernels``
+    entries."""
+    import torch
+
+    from repro_torch.kernels import library, ops
+    from repro_torch.kernels.gather_kernel import _launch_gathered_cost, _launch_gathered_kernel, _packed, packed_stride
+    from repro_torch.kernels.ref import gathered_cost_ref, gathered_kernel_ref, packed_rows_ref
 
     eps = 0.1
+    lib = library.load()
+    check(all(lib.gathered_packed_stride(dd) == packed_stride(dd) for dd in range(1, 65)),
+          "the C and Python packed strides differ")
     x, rows, cols = _gathered_inputs(n, k, d, device, seed=0)
-    k_e, c_e = gathered_kernel(x, x, rows, cols, eps=eps)
-    k_r, c_r = gathered_kernel_ref(x, x, rows, cols, eps=eps)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(k_e, k_r, **K_TOL)
-    torch.testing.assert_close(c_e, c_r, **C_TOL)
-    err = max(_max_abs_err(k_e, k_r), _max_abs_err(c_e, c_r))
-    log(f"gathered_kernel sqeuclidean k={k} n={n} d={d}: max_abs_err={err!r}")
+    err = _gathered_case(x, x, rows, cols, eps=eps, cost="sqeuclidean", eta=1.0)
+    log(f"gathered_kernel/gathered_cost sqeuclidean k={k} n={n} d={d} float64 points: max_abs_err={err!r}, "
+        f"two launches bitwise equal, the sketch's entries bitwise the checked wrappers'")
 
     # WFR with blocked pairs: two clusters further apart than pi * eta
     eta = 0.2
     xw = 0.2 * x
     xw[n // 2:, 0] += 1.8
-    kw = min(k, 1 << 20)
-    kw_e, cw_e = gathered_kernel(xw, xw, rows[:kw], cols[:kw], eps=eps, cost="wfr", eta=eta)
-    kw_r, cw_r = gathered_kernel_ref(xw, xw, rows[:kw], cols[:kw], eps=eps, cost="wfr", eta=eta)
-    blocked = torch.isinf(cw_r)
-    share = float(blocked.double().mean())
+    kw = min(k, 1 << 20) - 1
+    share = float(torch.isinf(gathered_cost_ref(xw, xw, rows[:kw], cols[:kw], cost="wfr", eta=eta)).double().mean())
     check(0.1 < share < 0.9, f"WFR case blocks {share} of its pairs")
-    check(bool(torch.equal(torch.isinf(cw_e), blocked)), "WFR blocked set differs from the plain version")
-    check(bool((kw_e[blocked] == 0).all()) and bool(torch.isposinf(cw_e[blocked]).all()),
-          "WFR blocked pairs are not exactly (0, +inf)")
-    torch.testing.assert_close(kw_e[~blocked], kw_r[~blocked], **K_TOL)
-    torch.testing.assert_close(cw_e[~blocked], cw_r[~blocked], **C_TOL)
-    err_w = max(_max_abs_err(kw_e, kw_r), _max_abs_err(cw_e, cw_r))
-    log(f"gathered_kernel wfr k={kw} blocked_share={share!r}: max_abs_err={err_w!r}")
+    err_w = _gathered_case(xw, xw, rows[:kw], cols[:kw], eps=eps, cost="wfr", eta=eta)
+    log(f"gathered_kernel/gathered_cost wfr k={kw} blocked_share={share!r}: max_abs_err={err_w!r}")
 
-    # an index outside the points is flagged by the kernel and raises
+    # d, point types, y apart from x (m != n), k odd, indices 8 bytes into
+    # their storage (no 16-byte index loads)
+    errs = {}
+    gen = torch.Generator(device=device).manual_seed(1)
+    for dd in GATHER_DIMS:
+        for dtype in (torch.float32, torch.float64):
+            xs = torch.rand((4096, dd), dtype=torch.float64, device=device, generator=gen).to(dtype)
+            ys = torch.rand((3001, dd), dtype=torch.float64, device=device, generator=gen).to(dtype)
+            ri = torch.sort(torch.randint(0, 4096, (100_004,), device=device, generator=gen)).values
+            ci = torch.randint(0, 3001, (100_004,), device=device, generator=gen)
+            e = _gathered_case(xs, ys, ri[:100_003], ci[:100_003], eps=eps, cost="sqeuclidean", eta=1.0)
+            e = max(e, _gathered_case(xs, ys, ri[1:], ci[1:], eps=eps, cost="sqeuclidean", eta=1.0))
+            # WFR on two clusters, as the reference's kernel tests draw them:
+            # each pair well inside the range pi * eta (diameter 0.4 < 0.63)
+            # or beyond it, the clusters centred at -1 and +1 on the first
+            # axis. In float32 the formula |x|^2 + |y|^2 - 2 <x, y> loses
+            # the digits that C_TOL asks for near the range (where -2 log cos
+            # is ill-conditioned) and for points far from the origin (where
+            # it cancels); there the kernel and the plain version, which
+            # round in other places, differ by more than C_TOL
+            xw2 = xs * (0.4 / math.sqrt(dd))
+            xw2[:2048, 0] -= 1.0
+            xw2[2048:, 0] += 1.0
+            cw = torch.randint(0, 4096, (100_003,), device=device, generator=gen)
+            e = max(e, _gathered_case(xw2, xw2, ri[:100_003], cw, eps=eps, cost="wfr", eta=0.2))
+            errs[f"d{dd} {str(dtype)[6:]}"] = e
+            # the pack's rows against the plain layout: coordinates bitwise,
+            # zeros, the norm to its rounding (float32: fused there, not here)
+            for out_dtype, launch_fn, outs, kw in (
+                (torch.float32, _launch_gathered_kernel, (torch.empty(8, device=device),) * 2, dict(eps=eps)),
+                (torch.float64, _launch_gathered_cost, (torch.empty(8, dtype=torch.float64, device=device),), {}),
+            ):
+                packed = _packed(xs, ys, out_dtype)
+                launch_fn(xs, ys, ri[:8], ci[:8], *outs, None, cost="sqeuclidean", eta=1.0, packed=packed, **kw)
+                stride = packed_stride(dd)
+                want = torch.cat([packed_rows_ref(xs, out_dtype), packed_rows_ref(ys, out_dtype)])
+                torch.cuda.synchronize()
+                got = packed.reshape(-1, stride)
+                check(bool(torch.equal(got[:, :dd], want[:, :dd])) and bool((got[:, dd + 1:] == 0).all()),
+                      f"the packed {out_dtype} rows of d = {dd} differ from the plain layout")
+                torch.testing.assert_close(got[:, dd], want[:, dd], rtol=dd * torch.finfo(out_dtype).eps, atol=0)
+    log(f"gathered_kernel/gathered_cost over d in {GATHER_DIMS} x (float32, float64 points) x (sqeuclidean, "
+        f"wfr), y apart from x, k = 100,003, and indices 8 bytes into their storage: max_abs_err {json.dumps(errs)}; "
+        f"the packed rows match the plain layout")
+
+    # an index outside the points is flagged by the kernels and raises
     bad_cols = cols[:1024].clone()
     bad_cols[-1] = n
-    try:
-        gathered_kernel(x, x, rows[:1024], bad_cols, eps=eps)
-    except IndexError:
-        pass
-    else:
-        check(False, "an out-of-range column index did not raise")
-    log("gathered_kernel: an out-of-range index raises IndexError")
+    for fn, kwargs in ((ops.gathered_kernel, dict(eps=eps)), (ops.gathered_cost, {})):
+        try:
+            fn(x, x, rows[:1024], bad_cols, **kwargs)
+        except IndexError:
+            pass
+        else:
+            check(False, f"{fn.__name__}: an out-of-range column index did not raise")
+    log("gathered_kernel, gathered_cost: an out-of-range index raises IndexError")
+    log_ptxas("gathered_")
 
-    # times at the main path's shapes: the wrapper as the path calls it
-    # (float64 points cast to float32, flag zeroed, launch, flag read), the
-    # bare launch, and the plain version
-    ms = time_ms(lambda: gathered_kernel(x, x, rows, cols, eps=eps))
-    xf = x.to(torch.float32).contiguous()
-    k_out, c_out = torch.empty_like(k_e), torch.empty_like(c_e)
-    flag = torch.zeros(1, dtype=torch.int32, device=device)
-    bare_ms = time_ms(lambda: _launch_gathered_kernel(xf, xf, rows, cols, k_out, c_out, flag,
-                                                      eps=eps, cost="sqeuclidean", eta=1.0))
-    plain_ms = time_ms(lambda: gathered_kernel_ref(x, x, rows, cols, eps=eps), reps=10)
-    # least work: the points read once (x is y here), both index arrays read
-    # once, both float32 outputs written once; ~6d + 6 float32 operations a pair
-    nbytes = xf.numel() * 4 + 2 * k * 8 + 2 * k * 4
-    ops = k * (6 * d + 6)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    # the traffic of the gather itself: two indices, 2 d float32 point
-    # values and two float32 outputs per pair
-    gathered_ms = k * (16 + 8 * d + 8) / HBM_BYTES_PER_S * 1e3
-    log(f"gathered_kernel times: wrapper {ms!r} ms, bare launch {bare_ms!r} ms, plain {plain_ms!r} ms, "
-        f"bound {max(t_bytes, t_ops)!r} ms ({nbytes} bytes, {ops} ops), "
-        f"per-pair gathered traffic at HBM rate {gathered_ms!r} ms")
-    return {
-        "name": "gathered_kernel",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/gather_kernel.cu",
-        "replaces": "src/repro/kernels/gather_kernel.py:51",
-        "launches": None,  # filled in from the main path's run
-        "max_abs_err": max(err, err_w),
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,  # no single PyTorch call computes this function
-    }
+    # times at the main path's shapes: the wrappers as the sketches call
+    # them (no flag), the checked wrappers, the bare launches (the pack and
+    # the kernel, outputs and scratch allocated once), each kernel's device
+    # time by name, and the plain versions
+    k_out, c_out, c64_out = (torch.empty(k, dtype=dt, device=device) for dt in (torch.float32,) * 2 + (torch.float64,))
+    packed32, packed64 = _packed(x, x, torch.float32), _packed(x, x, torch.float64)
+    entries = []
+    for name, sketch_call, checked_call, bare, plain, out_bytes, ops_per_pair, rate in (
+        ("gathered_kernel",
+         lambda: ops.gathered_sketch_kernel(x, x, rows, cols, eps=eps, cost="sqeuclidean", eta=1.0),
+         lambda: ops.gathered_kernel(x, x, rows, cols, eps=eps),
+         lambda: _launch_gathered_kernel(x, x, rows, cols, k_out, c_out, None, eps=eps, cost="sqeuclidean",
+                                         eta=1.0, packed=packed32),
+         lambda: gathered_kernel_ref(x, x, rows, cols, eps=eps), 8, 6 * d + 6, FP32_OPS_PER_S),
+        ("gathered_cost",
+         lambda: ops.gathered_sketch_cost(x, x, rows, cols, cost="sqeuclidean", eta=1.0),
+         lambda: ops.gathered_cost(x, x, rows, cols),
+         lambda: _launch_gathered_cost(x, x, rows, cols, c64_out, None, cost="sqeuclidean", eta=1.0,
+                                       packed=packed64),
+         lambda: gathered_cost_ref(x, x, rows, cols), 8, 6 * d + 4, FP64_OPS_PER_S),
+    ):
+        ms = time_ms(sketch_call)
+        checked_ms = time_ms(checked_call)
+        bare_ms = time_ms(bare)
+        by_kernel = device_ms_by_kernel(bare)
+        plain_ms = time_ms(plain, reps=10)
+        # least work: the points read once (x is y here, float64 as the path
+        # holds them), both index arrays read once, the outputs written
+        # once; the operations of a pair at the rate of their type
+        nbytes = x.numel() * 8 + 2 * k * 8 + k * out_bytes
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, k * ops_per_pair / rate * 1e3
+        log(f"{name} times: as the sketch calls it {ms!r} ms, checked wrapper {checked_ms!r} ms, bare launch "
+            f"{bare_ms!r} ms, device ms by kernel (profiler) {json.dumps(by_kernel)}, plain {plain_ms!r} ms, "
+            f"bound {max(t_bytes, t_ops)!r} ms ({nbytes} bytes {t_bytes!r} ms, {k * ops_per_pair} ops {t_ops!r} ms)")
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gather_kernel.cu",
+            # the cost-only mode is B1's too: the reference gathers these
+            # costs with XLA outside Pallas (src/repro/core/geometry.py:107)
+            "replaces": "src/repro/kernels/gather_kernel.py:51",
+            "launches": None,  # filled in from the main path's run
+            "max_abs_err": max(err, err_w, *errs.values()),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,  # no single PyTorch call computes this function
+        })
+    return entries
 
 
 def online_bound(n: int, m: int, d: int, ops_per_pair: int, sm_clock_hz: float, sms: int):
@@ -919,14 +1086,167 @@ def compare_lru_scan(old_source: Path, device) -> None:
         del a, b, g, h, h_ref, da, db, scratch
 
 
+def sass_memory_ops(lib_path: Path, markers: tuple[str, ...]) -> dict[str, int]:
+    """The global and local load and store instructions (opcode with its
+    width and cache modifiers) in the SASS of the kernel whose mangled name
+    holds the first of ``markers`` that the library has, counted statically
+    over the whole kernel (its paths for a ragged or misaligned end and for
+    cos's large arguments included), from ``cuobjdump -sass``."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True, check=True).stdout
+    marker = next((mk for mk in markers if mk in sass), markers[0])
+    counts, inside, seen = {"kernel": marker}, False, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = marker in line and not seen
+            seen = seen or inside
+        elif inside and (found := re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?((?:LDG|STG|LDL|STL)\S*)", line)):
+            counts[found.group(1)] = counts.get(found.group(1), 0) + 1
+    check(seen, f"no SASS for a kernel named like {marker} in {lib_path}")
+    return counts
+
+
+def compare_gather(old_source: Path, device) -> None:
+    """``--compare-with OLD_GATHER_KERNEL_CU``: another ``gather_kernel.cu``
+    (the earlier one-lane source, whose launch takes float32 points and no
+    pack scratch, or a variant of the current one) built apart. At the
+    main path's shapes (k = 1.01e7 pairs, n = 2^17, d = 5, run (a)'s
+    float64 points, as `check_gathered_kernel`), and on WFR points with
+    blocked pairs: both kernels' (K_e, C_e) against the plain version and
+    each other (bitwise or not); then in turns (old, new, new, old) the
+    bare launches (the earlier one's on points cast beforehand; the
+    current one packs inside) and the wrappers as the sketch calls them
+    (the earlier one's: the cast, the zeroed flag, the launch, the flag
+    read) by CUDA events, each kernel's device time by the profiler, and
+    the SM clock; the current launch with the columns sorted and equal to
+    the rows; the ptxas report and the load and store instructions of each
+    d = 5 kernel in the SASS."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.core.spar_sink import default_cap, s0
+    from repro_torch.kernels import library, ops
+    from repro_torch.kernels.gather_kernel import _launch_gathered_kernel, _packed
+    from repro_torch.kernels.ref import gathered_kernel_ref
+
+    old, old_lib_path = build_apart(old_source, "gathered_")
+    packed_api = c_arity(old_source.read_text(), "gathered_kernel_launch") == len(library.SIGNATURES["gathered_kernel"])
+    P, I64, INT, F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+    old.gathered_kernel_launch.argtypes = list(library.SIGNATURES["gathered_kernel"]) if packed_api else [
+        P, P, P, P, I64, I64, I64, INT, F32, INT, F32, P, P, P, P]
+    old.gathered_kernel_launch.restype = ctypes.c_int
+    n, d, eps = 1 << 17, 5, 0.1
+    k = default_cap(4 * s0(n))
+    x, rows, cols = _gathered_inputs(n, k, d, device, seed=0)
+    xw = 0.2 * x
+    xw[n // 2:, 0] += 1.8
+    stream = torch.cuda.current_stream(device).cuda_stream
+    k_old, c_old, k_new, c_new = (torch.empty(k, dtype=torch.float32, device=device) for _ in range(4))
+    flag = torch.zeros(1, dtype=torch.int32, device=device)
+    packed_old, packed_new = _packed(x, x, torch.float32), _packed(x, x, torch.float32)
+
+    def old_launch(pts, pts32, k_out, c_out, wfr, eta, bad):
+        if packed_api:
+            code = old.gathered_kernel_launch(pts.data_ptr(), pts.data_ptr(), 1, rows.data_ptr(), cols.data_ptr(), n,
+                                              n, k, d, eps, wfr, eta, packed_old.data_ptr(), k_out.data_ptr(),
+                                              c_out.data_ptr(), bad, stream)
+        else:
+            code = old.gathered_kernel_launch(pts32.data_ptr(), pts32.data_ptr(), rows.data_ptr(), cols.data_ptr(),
+                                              n, n, k, d, eps, wfr, eta, k_out.data_ptr(), c_out.data_ptr(), bad,
+                                              stream)
+        check(code == 0, f"old gathered_kernel launch failed ({code})")
+
+    for cost, pts, eta in (("sqeuclidean", x, 1.0), ("wfr", xw, 0.2)):
+        pts32 = pts.to(torch.float32).contiguous()
+        old_launch(pts, pts32, k_old, c_old, int(cost == "wfr"), eta, flag.data_ptr())
+        _launch_gathered_kernel(pts, pts, rows, cols, k_new, c_new, None, eps=eps, cost=cost, eta=eta,
+                                packed=packed_new)
+        k_r, c_r = gathered_kernel_ref(pts, pts, rows, cols, eps=eps, cost=cost, eta=eta)
+        torch.cuda.synchronize()
+        for label, k_e, c_e in (("old", k_old, c_old), ("new", k_new, c_new)):
+            ok = torch.isfinite(c_r)
+            check(bool(torch.equal(torch.isinf(c_e), ~ok)), f"{label} {cost}: the blocked set differs")
+            if cost == "sqeuclidean":
+                torch.testing.assert_close(k_e, k_r, **K_TOL)
+                torch.testing.assert_close(c_e, c_r, **C_TOL)
+            # WFR (the clusters of check_gathered_kernel at all k pairs):
+            # pairs where float32's expansion cancels, counted, not checked
+            outside = ~torch.isclose(c_e[ok], c_r[ok], **C_TOL) | ~torch.isclose(k_e[ok], k_r[ok], **K_TOL)
+            log(f"compare gathered_kernel {cost}: {label} max_abs_err "
+                f"{max(_max_abs_err(k_e, k_r), _max_abs_err(c_e, c_r))!r}, pairs outside K_TOL/C_TOL "
+                f"{int(outside.sum())} of {int(ok.sum())}")
+        same = bool(torch.equal(k_old, k_new)) and bool(torch.equal(c_old, c_new))
+        detail = "" if same else (
+            f" ({int((k_old != k_new).sum())} K and {int((c_old != c_new).sum())} C values differ, by at most "
+            f"{float((k_old - k_new).abs().nan_to_num().max())!r} and {float((c_old - c_new).abs().nan_to_num().max())!r})")
+        log(f"compare gathered_kernel {cost}: old and new bitwise equal: {same}{detail}")
+        del k_r, c_r, pts32
+    check(int(flag) == 0, "a compared gathered launch flagged an index")
+    x32 = x.to(torch.float32).contiguous()
+
+    def run_old():
+        old_launch(x, x32, k_old, c_old, 0, 1.0, None if packed_api else flag.data_ptr())
+
+    def run_new():
+        _launch_gathered_kernel(x, x, rows, cols, k_new, c_new, None, eps=eps, cost="sqeuclidean", eta=1.0,
+                                packed=packed_new)
+
+    def wrap_old():  # the earlier wrapper as the sketch called it
+        pts32 = x.to(torch.float32).contiguous()
+        bad = torch.zeros(1, dtype=torch.int32, device=device)
+        k_o, c_o = torch.empty(k, dtype=torch.float32, device=device), torch.empty(k, dtype=torch.float32,
+                                                                                   device=device)
+        old_launch(x, pts32, k_o, c_o, 0, 1.0, bad.data_ptr())
+        check(not bool(bad), "old wrapper flagged an index")
+
+    def wrap_new():
+        ops.gathered_sketch_kernel(x, x, rows, cols, eps=eps, cost="sqeuclidean", eta=1.0)
+
+    turns = (("old", run_old), ("new", run_new), ("new", run_new), ("old", run_old))
+    times, clocks = in_turns(turns, 50)
+    wraps = (("old", wrap_old), ("new", wrap_new), ("new", wrap_new), ("old", wrap_old))
+    wrap_times, _ = in_turns(wraps if not packed_api else wraps[1:3], 50)
+    dev = [(label, device_ms_by_kernel(fn, reps=50)) for label, fn in turns]
+    nbytes = x.numel() * 8 + 2 * k * 8 + 2 * k * 4
+    log(f"compare gathered_kernel k={k} n={n} d={d}: bare launch ms in turns {json.dumps(times)}; the wrappers as "
+        f"the sketch calls them, ms in turns {json.dumps(wrap_times)}; device ms by kernel (profiler) in turns "
+        f"{json.dumps(dev)}; bound {nbytes / HBM_BYTES_PER_S * 1e3!r} ms (bytes); during the bare turns "
+        f"(nvidia-smi medians) {json.dumps(clocks)}")
+    # where the time goes: the same launch with the columns in order (y read
+    # as x is, row after row) and with the columns equal to the rows
+    sorted_cols = torch.sort(cols).values
+    diag = {}
+    for label, cc in (("columns sorted", sorted_cols), ("columns = rows", rows)):
+        diag[label] = device_ms_by_kernel(lambda cc=cc: _launch_gathered_kernel(
+            x, x, rows, cc, k_new, c_new, None, eps=eps, cost="sqeuclidean", eta=1.0, packed=packed_new), reps=50)
+    log(f"compare gathered_kernel: the current launch's device ms (profiler) with other columns {json.dumps(diag)}")
+    del sorted_cols
+    log_ptxas("gathered_")
+    markers = ("gathered_kernel_f32_halvesILi5E", "gathered_kernel_f32ILi5E", "gathered_kernel_f32EPKf")
+    log(f"compare SASS gathered_kernel d=5 global and local loads and stores: old "
+        f"{json.dumps(sass_memory_ops(old_lib_path, markers))}; new "
+        f"{json.dumps(sass_memory_ops(library._build(), markers))}; new float64 cost "
+        f"{json.dumps(sass_memory_ops(library._build(), ('gathered_cost_f64ILi5E',)))}")
+
+
 # --------------------------------------------------------------------------
 # Phase 3: the main path at full width
 # --------------------------------------------------------------------------
 
 
+#: runs (a), (b) and (c) as the earlier one-lane gathered kernel and the plain
+#: float64 gather gave them on the H100 80GB HBM3 (PERF.md): iterations and
+#: value, which this run's are compared with (and reported)
+EARLIER_RUNS = {"a": (130, -1.2851739752317646), "b": (130, -1.2851739747877857), "c": (64, -5.46044113146657)}
+
+
 def run_main_path(n: int, device, max_iter: int = 200) -> tuple[dict[str, int], float]:
-    """Runs (a)-(c) and the repeat of (a); returns the kernel launches made
-    by their four solves, and the value of (a)."""
+    """Runs (a)-(c) and the repeat of (a), each sketch first built alone
+    (wall, device time, peak memory); returns the kernel launches made by
+    their four solves, and the value of (a)."""
     import torch
 
     import repro_torch as rt
@@ -946,11 +1266,21 @@ def run_main_path(n: int, device, max_iter: int = 200) -> tuple[dict[str, int], 
         # the sketch alone, timed apart from the solve (its launches are not
         # the main path's: the counts are reset after it)
         build = rt.build_mf_log_sketch if stabilize else rt.build_mf_sketch
+
+        def sketch():
+            return build(problem, torch.Generator(device=device).manual_seed(0), s)
+
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        sk, _ = build(problem, torch.Generator(device=device).manual_seed(0), s)
+        sk, _ = sketch()
         torch.cuda.synchronize()
         sketch_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        cap = sk.cap
+        del sk
+        sketch_dev_ms = device_ms(sketch, reps=3)
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         sol = rt.solve(problem, method="spar_sink_mf", seed=0, s=s, tol=1e-6,
@@ -960,21 +1290,87 @@ def run_main_path(n: int, device, max_iter: int = 200) -> tuple[dict[str, int], 
         counts = dict(ops.LAUNCHES)
         for kernel, count in counts.items():
             total[kernel] += count
-        launches = counts["gathered_kernel"]
-        row = dict(run=name, n=n, s=s, cap=sk.cap, sketch_s=sketch_s, solve_s=solve_s,
+        launches, cost_launches = counts["gathered_kernel"], counts["gathered_cost"]
+        row = dict(run=name, n=n, s=s, cap=cap, sketch_s=sketch_s,
+                   sketch_device_ms=sketch_dev_ms, sketch_peak_bytes=peak, solve_s=solve_s,
                    n_iter=int(sol.n_iter), status=sol.status_label, nnz=int(sol.nnz),
-                   overflowed=bool(sol.overflowed), value=value, kernel_launches=launches)
+                   overflowed=bool(sol.overflowed), value=value, kernel_launches=launches,
+                   cost_kernel_launches=cost_launches)
         log("main path " + json.dumps(row))
         check(math.isfinite(value), f"({name}) value is not finite")
         check(row["nnz"] > 0, f"({name}) empty sketch")
         check(not row["overflowed"], f"({name}) sketch overflowed its capacity")
-        if not stabilize:
-            check(launches == 1, f"({name}) the solve launched the gathered kernel {launches} times, not once")
+        want = (0, 1) if stabilize else (1, 0)
+        check((launches, cost_launches) == want,
+              f"({name}) the solve launched gathered_kernel {launches} and gathered_cost {cost_launches} times, "
+              f"not {want[0]} and {want[1]}")
+        check(sum(counts.values()) == 1, f"({name}) the solve launched other kernels: {counts}")
         results[name] = (value, int(sol.n_iter))
+        it0, v0 = EARLIER_RUNS[name.split("-")[0]]
+        log(f"main path ({name}) against the earlier kernel's run: iterations {int(sol.n_iter)} ({it0}), value "
+            f"{value!r} ({v0!r}), bitwise {value == v0}, relative difference {abs(value - v0) / abs(v0)!r}")
     check(results["a"] == results["a-repeat"],
           f"repeated run (a) differs: {results['a']} vs {results['a-repeat']}")
     log("main path: the repeated run (a) is bitwise identical")
+    compare_log_sketch(ot, s, device)
     return total, results["a"][0]
+
+
+def compare_log_sketch(problem, s: float, device, rounds: int = 2) -> None:
+    """Run (b)'s log-domain sketch with the plain float64 gather (the
+    earlier `build_mf_log_sketch`: torch's `gathered_cost`) and with the cost-only
+    kernel, in turns (plain, kernel, kernel, plain) ``rounds`` times: each
+    build's wall (synced), peak device memory above what was allocated
+    before (reset just before) and device time (profiler); the two
+    sketches' draws bitwise equal, their log-values and costs at the float64
+    kernel's tolerance."""
+    import torch
+
+    import repro_torch as rt
+    from repro_torch.core import sparsify
+    from repro_torch.core.api import solvers
+    from repro_torch.core.geometry import gathered_cost
+    from repro_torch.core.spar_sink import default_cap
+
+    geom = problem.geom
+
+    def plain():
+        ra, rb, thin = solvers._proposal(problem)
+        return sparsify.sparsify_coo_mf_log(
+            torch.Generator(device=device).manual_seed(0), ra, rb, s, default_cap(s),
+            lambda r, c: gathered_cost(geom.x, geom.y, r, c, cost=geom.cost_name, eta=geom.eta),
+            float(problem.eps), thin_scale=thin)
+
+    def kernel():
+        return rt.build_mf_log_sketch(problem, torch.Generator(device=device).manual_seed(0), s)
+
+    (sk_p, c_p), (sk_k, c_k) = plain(), kernel()
+    torch.cuda.synchronize()
+    for field in ("rows", "cols", "nnz", "csort", "n_proposed", "n_accepted"):
+        check(bool(torch.equal(getattr(sk_p, field), getattr(sk_k, field))), f"log sketch: {field} differs")
+    live = torch.isfinite(sk_p.logvals)
+    check(bool(torch.equal(live, torch.isfinite(sk_k.logvals))), "log sketch: the live entries differ")
+    lv_err = float((sk_k.logvals[live] - sk_p.logvals[live]).abs().max())
+    c_err = float(((c_k - c_p).abs()).max())
+    log(f"log sketch n={geom.x.shape[0]}: plain gather and cost kernel give the same draw; logvals max abs "
+        f"difference {lv_err!r} (max |logvals| {float(sk_p.logvals[live].abs().max())!r}), costs max abs "
+        f"difference {c_err!r}, bitwise equal: {bool(torch.equal(sk_p.logvals, sk_k.logvals))}")
+    del sk_p, c_p, sk_k, c_k
+    rows = []
+    for label, fn in (("plain", plain), ("kernel", kernel), ("kernel", kernel), ("plain", plain)) * rounds:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        del out
+        rows.append((label, wall * 1e3, peak))
+    dev = [(label, device_ms(fn, reps=3)) for label, fn in (("plain", plain), ("kernel", kernel))]
+    log(f"log sketch n={geom.x.shape[0]} in turns (label, wall ms, peak bytes above the start): {json.dumps(rows)}; "
+        f"device ms (profiler) {json.dumps(dev)}")
 
 
 # --------------------------------------------------------------------------
@@ -2348,20 +2744,25 @@ def main() -> int:
                 compare_block_ell(path, device)
             elif "lru_scan_fwd_launch" in text:
                 compare_lru_scan(path, device)
+            elif "gathered_kernel_launch" in text:
+                compare_gather(path, device)
             else:
-                check(False, f"--compare-with {other}: not a fused_sinkhorn, block_ell or lru_scan source")
+                check(False, f"--compare-with {other}: not a fused_sinkhorn, block_ell, lru_scan or gather_kernel "
+                      f"source")
         log(card)
         return 0
 
     n = 2 ** 17
-    entries = [check_gathered_kernel(n, default_cap(4 * s0(n)), 5, device)]
-    entries += check_online_kernels(n, device, clock)
+    entries = check_gathered_kernel(n, default_cap(4 * s0(n)), 5, device)
+    online_entries = check_online_kernels(n, device, clock)
     launches, value_a = run_main_path(n, device)
-    entries[0]["launches"] = launches["gathered_kernel"]
+    for entry in entries:
+        entry["launches"] = launches[entry["name"]]
     v_log = check_accuracy(8192, device)
     fused_launches, x, u, v = run_fused_path(n, device)
-    for entry in entries[1:]:
+    for entry in online_entries:
         entry["launches"] = fused_launches[entry["name"]]
+    entries += online_entries
     t0 = time.perf_counter()
     value_dense = blockwise_ot_value(x, u, v, 0.1)
     rel = abs(value_a - value_dense) / abs(value_dense)

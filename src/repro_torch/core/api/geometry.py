@@ -216,7 +216,15 @@ class PointCloudGeometry(Geometry):
         return super().normalized()
 
     def cost_entries(self, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
-        """``C[rows, cols]`` in O(k d), in the points' dtype."""
+        """``C[rows, cols]`` in O(k d), in the points' dtype. CUDA tensors go
+        through the float64 cost-only kernel (`repro_torch.kernels.ops.
+        gathered_cost`, checked; cast to the points' dtype if that is not
+        float64), CPU tensors through the torch gather."""
+        if self.x.device.type == "cuda":
+            from repro_torch.kernels.ops import gathered_cost as cost_kernel
+
+            c_e = cost_kernel(self.x, self.y, rows, cols, cost=self.cost_name, eta=self.eta)
+            return c_e if c_e.dtype == self.dtype else c_e.to(self.dtype)
         return gathered_cost(self.x, self.y, rows, cols, cost=self.cost_name, eta=self.eta)
 
     def entries(
@@ -229,6 +237,12 @@ class PointCloudGeometry(Geometry):
         tensors only), or ``"auto"``: the CUDA kernel for CUDA tensors, the
         torch path for CPU tensors.
         """
+        return self._entries(rows, cols, eps, impl, checked=True)
+
+    def _entries(self, rows, cols, eps: float, impl: str, *, checked: bool):
+        """`entries`; ``checked=False`` (the sketch's call, on indices in
+        range by construction) launches the CUDA kernel with no argument
+        check and no flag read, so no host sync."""
         if impl == "auto":
             impl = "cuda" if self.x.device.type == "cuda" else "torch"
         if impl == "cuda":
@@ -236,15 +250,25 @@ class PointCloudGeometry(Geometry):
                 raise ValueError(
                     f"impl='cuda' needs the points on a CUDA device; they are on {self.x.device}"
                 )
-            from repro_torch.kernels.ops import gathered_kernel
+            from repro_torch.kernels.ops import gathered_kernel, gathered_sketch_kernel
 
-            return gathered_kernel(
-                self.x, self.y, rows, cols, eps=float(eps), cost=self.cost_name, eta=self.eta
-            )
+            kernel = gathered_kernel if checked else gathered_sketch_kernel
+            return kernel(self.x, self.y, rows, cols, eps=float(eps), cost=self.cost_name, eta=self.eta)
         if impl != "torch":
             raise ValueError(f"unknown impl {impl!r}; available: auto, cuda, torch")
-        c_e = self.cost_entries(rows, cols)
+        c_e = gathered_cost(self.x, self.y, rows, cols, cost=self.cost_name, eta=self.eta)
         return gibbs_kernel(c_e, float(eps)), c_e
+
+    def _sketch_cost_entries(self, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+        """`cost_entries` as the log-domain sketch calls it, on indices in
+        range by construction: on CUDA tensors the cost-only kernel with no
+        argument check and no flag read (`ops.gathered_sketch_cost`)."""
+        if self.x.device.type == "cuda":
+            from repro_torch.kernels.ops import gathered_sketch_cost
+
+            c_e = gathered_sketch_cost(self.x, self.y, rows, cols, cost=self.cost_name, eta=self.eta)
+            return c_e if c_e.dtype == self.dtype else c_e.to(self.dtype)
+        return gathered_cost(self.x, self.y, rows, cols, cost=self.cost_name, eta=self.eta)
 
     def __repr__(self) -> str:
         n, m = self.shape

@@ -157,9 +157,11 @@ def build_mf_sketch(
     eps = float(problem.eps)
     cap = default_cap(s) if cap is None else cap
     ra, rb, thin_scale = _proposal(problem)
+    # unchecked: the draw clamps rows to n - 1 and columns to m - 1
+    # (sparsify._draw), so no range flag is read and nothing syncs
     return sparsify.sparsify_coo_mf(
         generator, ra, rb, s, cap,
-        lambda r, c: geom.entries(r, c, eps, impl=impl),
+        lambda r, c: geom._entries(r, c, eps, impl, checked=False),
         thin_scale=thin_scale,
     )
 
@@ -173,12 +175,14 @@ def build_mf_log_sketch(
 ) -> tuple[sparsify.LogSparseKernelCOO, torch.Tensor]:
     """Matrix-free log-space importance sketch: `build_mf_sketch`'s draw
     with ``logvals = -C_e/eps - log rate_e`` from gathered raw costs, so
-    ``exp(-C/eps)`` is never evaluated. Returns ``(sketch, C_e)``."""
+    ``exp(-C/eps)`` is never evaluated; on the card the costs come from the
+    float64 cost-only kernel. Returns ``(sketch, C_e)``."""
     geom = _mf_geometry(problem)
     cap = default_cap(s) if cap is None else cap
     ra, rb, thin_scale = _proposal(problem)
+    # unchecked, as in build_mf_sketch: the draw's indices are in range
     return sparsify.sparsify_coo_mf_log(
-        generator, ra, rb, s, cap, geom.cost_entries, float(problem.eps), thin_scale=thin_scale
+        generator, ra, rb, s, cap, geom._sketch_cost_entries, float(problem.eps), thin_scale=thin_scale
     )
 
 

@@ -11,6 +11,7 @@ unchanged tree is loaded as it is.
 Every ``<name>_launch`` function of the library launches one kernel on the
 stream it is given (its last argument; the online ones over P > 1 column
 slices and ``block_ell_rmatvec`` a second that combines the partials;
+``gathered_kernel`` and ``gathered_cost`` a pack of the points first;
 ``lru_scan_fwd`` and ``lru_scan_bwd`` a memset of their flags first), allocates nothing, and returns its
 ``cudaError_t``; `launch` passes PyTorch's current stream, raises on a code
 other than 0 and counts the launch in `LAUNCHES`.
@@ -39,12 +40,14 @@ PTXAS_FLAGS = ("-Xptxas=-v",)
 #: the cost switch of every launch function
 COSTS = {"sqeuclidean": 0, "wfr": 1}
 
-_P, _I64, _INT, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+_P, _I64, _INT, _F32, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float, ctypes.c_double
 #: C signature (argument types) of each ``<name>_launch``, which returns int;
 #: pointers and the stream are ``c_void_p`` so that no address is cut to 32 bits
 SIGNATURES = {
-    # x, y, rows, cols, n, m, k, d, eps, wfr, eta, k_out, c_out, bad_index, stream
-    "gathered_kernel": (_P, _P, _P, _P, _I64, _I64, _I64, _INT, _F32, _INT, _F32, _P, _P, _P, _P),
+    # x, y, points_f64, rows, cols, n, m, k, d, eps, wfr, eta, packed, k_out, c_out, bad_index, stream
+    "gathered_kernel": (_P, _P, _INT, _P, _P, _I64, _I64, _I64, _INT, _F32, _INT, _F32, _P, _P, _P, _P, _P),
+    # x, y, points_f64, rows, cols, n, m, k, d, wfr, eta, packed, c_out, bad_index, stream
+    "gathered_cost": (_P, _P, _INT, _P, _P, _I64, _I64, _I64, _INT, _INT, _F64, _P, _P, _P, _P),
     # x, y, v, n, m, d, eps, wfr, eta, slices, part, out, stream
     "online_matvec": (_P, _P, _P, _I64, _I64, _INT, _F32, _INT, _F32, _INT, _P, _P, _P),
     # x, y, g, n, m, d, eps, wfr, eta, slices, part, out, stream
@@ -140,6 +143,9 @@ def load() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.cuda_error_string.argtypes = [ctypes.c_int]
             lib.cuda_error_string.restype = ctypes.c_char_p
+            # d -> the values in one packed point row of the gathered kernels
+            lib.gathered_packed_stride.argtypes = [_INT]
+            lib.gathered_packed_stride.restype = _INT
             # n, m, d, wfr, lse -> the column slices of an online launch
             lib.online_slices.argtypes = [_I64, _I64, _INT, _INT, _INT]
             lib.online_slices.restype = ctypes.c_int

@@ -17,11 +17,12 @@ import torch
 from repro_torch.core.sinkhorn import SinkhornResult, generic_scaling_loop
 from repro_torch.kernels.block_ell import BlockEllColumns, _launch_block_ell_matvec, _launch_block_ell_rmatvec
 from repro_torch.kernels.fused_sinkhorn import _launch_online_lse, _launch_online_matvec
-from repro_torch.kernels.gather_kernel import _launch_gathered_kernel
+from repro_torch.kernels.gather_kernel import _launch_gathered_cost, _launch_gathered_kernel
 from repro_torch.kernels.library import COSTS, LAUNCHES, reset_launch_counts
 from repro_torch.kernels.lru_scan import _launch_lru_scan_bwd, _launch_lru_scan_fwd
 from repro_torch.kernels.ref import (
     block_ell_matvec_ref,
+    gathered_cost_ref,
     gathered_kernel_ref,
     lru_scan_bwd_ref,
     lru_scan_ref,
@@ -36,7 +37,10 @@ __all__ = [
     "block_ell_sketch_matvec",
     "block_ell_sketch_rmatvec",
     "fused_sinkhorn_solve",
+    "gathered_cost",
     "gathered_kernel",
+    "gathered_sketch_cost",
+    "gathered_sketch_kernel",
     "lru_scan",
     "online_lse",
     "online_matvec",
@@ -66,6 +70,40 @@ def _one_device(name: str, *tensors: torch.Tensor) -> torch.device:
     return dev
 
 
+def _check_gather(name: str, x, y, rows, cols, cost: str) -> torch.device:
+    """The checks of the public gathered wrappers; returns the device."""
+    _check_cost(cost)
+    _check_points(x, y)
+    if rows.ndim != 1 or rows.shape != cols.shape:
+        raise ValueError(f"{name}: rows/cols must be equal-length 1-d; got {tuple(rows.shape)}, {tuple(cols.shape)}")
+    if rows.dtype != torch.int64 or cols.dtype != torch.int64:
+        raise TypeError(f"{name}: rows/cols must be int64; got {rows.dtype}, {cols.dtype}")
+    dev = _one_device(name, x, y, rows, cols)
+    if dev.type == "cuda" and not (rows.is_contiguous() and cols.is_contiguous()):
+        raise ValueError(f"{name}: rows/cols must be contiguous")
+    return dev
+
+
+def _gathered(launch, x, y, rows, cols, out_dtypes, checked: bool, **kw) -> list[torch.Tensor]:
+    """One counted launch of a gathered kernel on CUDA tensors (none for
+    k = 0): the points as the pack reads them, both float32 as they are or
+    both float64 (another float type cast to it, exactly; y stays x where it
+    is x), fresh outputs, and with ``checked`` the kernel's range flag, read
+    after the launch (a host sync) to raise `IndexError`."""
+    dtype = torch.float32 if x.dtype == y.dtype == torch.float32 else torch.float64
+    xc = x.to(dtype).contiguous()
+    yc = xc if y is x else y.to(dtype).contiguous()
+    outs = [torch.empty(rows.shape[0], dtype=dt, device=x.device) for dt in out_dtypes]
+    if rows.shape[0] == 0:
+        return outs
+    flag = torch.zeros(1, dtype=torch.int32, device=x.device) if checked else None
+    launch(xc, yc, rows, cols, *outs, flag, **kw)
+    # the kernel range-checks every index as it reads it (no extra pass)
+    if checked and bool(flag):
+        raise IndexError("rows/cols out of range of the point arrays")
+    return outs
+
+
 def gathered_kernel(
     x: torch.Tensor,
     y: torch.Tensor,
@@ -78,37 +116,65 @@ def gathered_kernel(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(K_e, C_e) = (exp(-C(x_i,y_j)/eps), C(x_i,y_j))`` at k index pairs.
 
-    Shapes ``(n,d),(m,d),(k,),(k,) -> ((k,),(k,))``, both outputs float32;
-    points of another float dtype are cast to float32 first. WFR pairs
-    beyond range come out exactly ``(0, +inf)``. CUDA tensors go through the
-    CUDA kernel (``csrc/gather_kernel.cu``); CPU tensors through
-    `gathered_kernel_ref`.
+    Shapes ``(n,d),(m,d),(k,),(k,) -> ((k,),(k,))``, int64 indices, both
+    outputs float32 (float32 arithmetic on the points rounded to float32).
+    WFR pairs beyond range come out exactly ``(0, +inf)``. CUDA tensors go
+    through the CUDA kernel (``csrc/gather_kernel.cu``), whose range flag is
+    read after the launch: an index outside the points raises `IndexError`.
+    CPU tensors go through `gathered_kernel_ref`.
     """
-    _check_cost(cost)
-    _check_points(x, y)
-    if rows.ndim != 1 or rows.shape != cols.shape:
-        raise ValueError(f"rows/cols must be equal-length 1-d; got {tuple(rows.shape)}, {tuple(cols.shape)}")
-    dev = _one_device("gathered_kernel", x, y, rows, cols)
+    dev = _check_gather("gathered_kernel", x, y, rows, cols, cost)
     if dev.type == "cpu":
         return gathered_kernel_ref(x, y, rows, cols, eps=eps, cost=cost, eta=eta)
-    if rows.dtype != torch.int64 or cols.dtype != torch.int64:
-        raise TypeError(f"rows/cols must be int64; got {rows.dtype}, {cols.dtype}")
-    if not (rows.is_contiguous() and cols.is_contiguous()):
-        raise ValueError("rows/cols must be contiguous")
-    k = rows.shape[0]
-    k_out = torch.empty(k, dtype=torch.float32, device=dev)
-    c_out = torch.empty(k, dtype=torch.float32, device=dev)
-    if k == 0:
-        return k_out, c_out
-    xf = x.to(torch.float32).contiguous()
-    yf = xf if y is x else y.to(torch.float32).contiguous()
-    bad_index = torch.zeros(1, dtype=torch.int32, device=dev)
-    _launch_gathered_kernel(xf, yf, rows, cols, k_out, c_out, bad_index, eps=eps, cost=cost, eta=eta)
-    # the kernel range-checks every index as it reads it (no extra pass);
-    # reading its flag waits for the launch to finish
-    if bool(bad_index):
-        raise IndexError("rows/cols out of range of the point arrays")
-    return k_out, c_out
+    k_e, c_e = _gathered(_launch_gathered_kernel, x, y, rows, cols, (torch.float32, torch.float32), True,
+                         eps=eps, cost=cost, eta=eta)
+    return k_e, c_e
+
+
+def gathered_cost(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    *,
+    cost: str = "sqeuclidean",
+    eta: float = 1.0,
+) -> torch.Tensor:
+    """``C_e = C(x_i, y_j)`` at k index pairs in float64, the cost-only
+    mode of the gathered kernel: ``(n,d),(m,d),(k,),(k,) -> (k,)``, int64
+    indices, points of any float type (cast to float64, exactly). Blocked
+    WFR pairs come out exactly ``+inf``. CUDA tensors go through the CUDA
+    kernel, checked as `gathered_kernel`; CPU tensors through
+    `gathered_cost_ref`.
+    """
+    dev = _check_gather("gathered_cost", x, y, rows, cols, cost)
+    if dev.type == "cpu":
+        return gathered_cost_ref(x, y, rows, cols, cost=cost, eta=eta)
+    return _gathered(_launch_gathered_cost, x, y, rows, cols, (torch.float64,), True, cost=cost, eta=eta)[0]
+
+
+def gathered_sketch_kernel(x, y, rows, cols, *, eps: float, cost: str, eta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """`gathered_kernel` as the matrix-free sketch calls it
+    (`repro_torch.core.api.build_mf_sketch`): no argument check and no flag,
+    so no host sync. The sketch's draw makes contiguous int64 indices in
+    range (`repro_torch.core.sparsify._draw` clamps rows to n - 1 and
+    columns to m - 1); an index out of range would still read no point and
+    come out NaN. CPU tensors run `gathered_kernel_ref`."""
+    if x.device.type == "cpu":
+        return gathered_kernel_ref(x, y, rows, cols, eps=eps, cost=cost, eta=eta)
+    k_e, c_e = _gathered(_launch_gathered_kernel, x, y, rows, cols, (torch.float32, torch.float32), False,
+                         eps=eps, cost=cost, eta=eta)
+    return k_e, c_e
+
+
+def gathered_sketch_cost(x, y, rows, cols, *, cost: str, eta: float) -> torch.Tensor:
+    """`gathered_cost` as the log-domain sketch calls it
+    (`repro_torch.core.api.build_mf_log_sketch`), unchecked and without a
+    host sync, as `gathered_sketch_kernel`. CPU tensors run
+    `gathered_cost_ref`."""
+    if x.device.type == "cpu":
+        return gathered_cost_ref(x, y, rows, cols, cost=cost, eta=eta)
+    return _gathered(_launch_gathered_cost, x, y, rows, cols, (torch.float64,), False, cost=cost, eta=eta)[0]
 
 
 def _online(name: str, ref, launch, x, y, w, *, eps: float, cost: str, eta: float) -> torch.Tensor:

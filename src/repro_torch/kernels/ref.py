@@ -9,17 +9,20 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.geometry import wfr_from_dist
+from repro_torch.core.geometry import gathered_cost, wfr_from_dist
+from repro_torch.kernels.gather_kernel import packed_stride
 
 __all__ = [
     "block_ell_matvec_ref",
     "block_ell_rmatvec_ref",
+    "gathered_cost_ref",
     "gathered_kernel_ref",
     "linear_scan",
     "lru_scan_bwd_ref",
     "lru_scan_ref",
     "online_lse_ref",
     "online_matvec_ref",
+    "packed_rows_ref",
 ]
 
 #: elements of one (rows, m) block of the streaming plain versions
@@ -53,6 +56,37 @@ def gathered_kernel_ref(
     if blocked is None:
         return k, c
     return torch.where(blocked, 0.0, k), torch.where(blocked, torch.inf, c)
+
+
+def gathered_cost_ref(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    *,
+    cost: str = "sqeuclidean",
+    eta: float = 1.0,
+) -> torch.Tensor:
+    """``C_e = C(x_i, y_j)`` at k index pairs in float64 whatever the points'
+    dtype (as the cost-only kernel computes): the float64 formula of
+    `repro_torch.core.geometry.gathered_cost`, blocked WFR pairs exactly
+    ``+inf``."""
+    return gathered_cost(x.to(torch.float64), y.to(torch.float64), rows, cols, cost=cost, eta=eta)
+
+
+def packed_rows_ref(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The gathered kernels' packed layout of one point set ``(n, d)``:
+    ``(n, packed_stride(d))`` rows in ``dtype`` holding the coordinates, the
+    squared norm (summed in order t = 0..d-1) and zeros."""
+    n, d = x.shape
+    xc = x.to(dtype)
+    out = torch.zeros((n, packed_stride(d)), dtype=dtype, device=x.device)
+    out[:, :d] = xc
+    norm = torch.zeros(n, dtype=dtype, device=x.device)
+    for t in range(d):
+        norm = norm + xc[:, t] * xc[:, t]
+    out[:, d] = norm
+    return out
 
 
 def _cost_from_sq(sq: torch.Tensor, cost: str, eta: float):

@@ -236,10 +236,11 @@ def test_exports_follow_the_reference():
 
 def _ctype(param: str):
     """The ctypes type that passes one C parameter: a pointer as c_void_p
-    (never cut to 32 bits), int64_t, int and float as themselves."""
+    (never cut to 32 bits), int64_t, int, float and double as themselves."""
     if "*" in param:
         return ctypes.c_void_p
-    return {"int64_t": ctypes.c_int64, "int": ctypes.c_int, "float": ctypes.c_float}[param.split()[0]]
+    return {"int64_t": ctypes.c_int64, "int": ctypes.c_int, "float": ctypes.c_float,
+            "double": ctypes.c_double}[param.split()[0]]
 
 
 def test_library_signatures_match_the_cuda_sources():
