@@ -99,7 +99,30 @@ failure exits non-zero):
    step's loss and gradients computed twice from the same state, which must
    be bitwise equal or are named leaf by leaf (the first also records the
    layout of each cotangent B6 gets); then one warm step under the profiler
-   for B6's and B5's device time a launch as the step reaches them.
+   for B6's and B5's device time a launch as the step reaches them;
+9. (run right after phase 4) the paper's estimator and its competitors at
+   n = 8192 on phase 4's OT problem, with phase 4's ``log`` value as the
+   oracle: for seed 0 the kept support of ``spar_sink_coo`` equals
+   ``spar_sink_dense``'s nonzeros and ``spar_sink_log``'s, and B1's float64
+   cost-only kernel on that sketch (as the shared-variates solve calls it)
+   holds against its plain version and the dense cost's entries within
+   ``cost64_excess``'s tolerance; ``spar_sink_coo``,
+   ``spar_sink_log``, ``spar_sink_dense``, ``rand_sink`` and ``spar_sink_mf``
+   (``shared_variates=True``) at s = 16 s0(n) over 4 seeds, after an untimed
+   warm-up each: value, iterations, status, wall (synced), relative error,
+   the counts set to 0 just before each solve and read just after (the
+   shared-variates solve launches B1's cost-only mode once, the others no
+   hand kernel); the shared-variates scalings bitwise ``spar_sink_coo``'s and
+   its value within 1e-12 relative of ``spar_sink_coo``'s, two
+   ``spar_sink_coo`` solves of one seed bitwise equal, ``spar_sink_coo``'s mean
+   relative error below 0.25; ``greenkhorn`` at 5(n + m) updates (with its
+   launches and device time an update), ``nys_sink`` at rank n/20 and
+   ``screenkhorn_lite`` at decimation 3; ``spar_sink_coo``, ``spar_sink_log``
+   (eq. 11 log-probabilities) and ``rand_sink`` on run (c)'s UOT problem at n
+   = 8192 against its ``log`` value; then the reference's eps sweep
+   (``benchmarks/bench_rmae_vs_eps.py`` at BENCH_eps.json's settings: n =
+   256, eps 1e-1, 1e-2, 1e-3, OT and UOT) with each RMAE beside the
+   reference's CPU row, and its smoke acceptance on OT.
 
 ``--profile`` also runs (a), one prefill, one serving decode step and one
 train step under `torch.profiler` and prints where their device time goes.
@@ -1442,6 +1465,274 @@ def check_accuracy(n: int, device, seeds: int = 4) -> float:
 
 
 # --------------------------------------------------------------------------
+# Phase 9: the paper's estimator and its competitors (runs after phase 4)
+# --------------------------------------------------------------------------
+
+#: phase 9's sketch solvers on phase 4's OT problem (spar_sink_mf in its
+#: shared-variates test mode, the one of them that reaches a hand kernel:
+#: B1's float64 cost-only mode, once a solve) and on run (c)'s UOT problem
+SKETCH_SOLVERS = (("spar_sink_coo", {}), ("spar_sink_log", {}), ("spar_sink_dense", {}), ("rand_sink", {}),
+                  ("spar_sink_mf", dict(shared_variates=True)))
+UOT_SKETCH_SOLVERS = (("spar_sink_coo", {}), ("spar_sink_log", {}), ("rand_sink", {}))
+#: the settings of the reference's BENCH_eps.json (its `run(n=256, n_rep=4)`
+#: in `benchmarks.run --emit-json`), and its smoke acceptance
+EPS_SWEEP = dict(n=256, d=4, eps_grid=(1e-1, 1e-2, 1e-3), s_mult=16, n_rep=4, tol=1e-9, max_iter=3000)
+EPS_SWEEP_METHODS = ("spar_sink_coo", "spar_sink_log", "spar_sink_mf")
+
+
+def solve_synced(problem, method: str, **opts):
+    """One ``solve`` with its kernel launches counted (set to 0 just before,
+    read just after): ``(Solution, value, wall s, launches)``, the wall on
+    the host clock up to a device sync."""
+    import torch
+
+    import repro_torch as rt
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sol = rt.solve(problem, method=method, **opts)
+    value = float(sol.value)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return sol, value, wall, {name: count for name, count in ops.LAUNCHES.items() if count}
+
+
+def check_shared_support(problem, s: float, device) -> None:
+    """For one generator state, the kept support of ``spar_sink_coo``'s sketch
+    equals the nonzeros of ``spar_sink_dense``'s and ``spar_sink_log``'s
+    support (they share one draw of uniforms); B1's float64 cost-only
+    kernel on that sketch holds against its plain version and the dense
+    cost's entries (`cost64_excess`)."""
+    import torch
+
+    import repro_torch as rt
+    from repro_torch.core import sparsify
+    from repro_torch.kernels.ref import gathered_cost_ref
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(0)
+
+    m = problem.shape[1]
+    sk = rt.build_coo_sketch(problem, gen(), s)
+    lsk, _ = rt.build_coo_log_sketch(problem, gen(), s)
+    Kt = sparsify.sparsify_dense(gen(), problem.kernel(), rt.sampling_probs(problem), s)
+    nnz = int(sk.nnz)
+    dense_support = torch.nonzero(Kt.reshape(-1))[:, 0]
+    del Kt
+    check(not bool(sk.overflowed), "phase 9: spar_sink_coo's sketch overflowed its capacity")
+    check(torch.equal(sk.rows[:nnz] * m + sk.cols[:nnz], dense_support),
+          "phase 9: spar_sink_coo's kept support is not spar_sink_dense's nonzeros")
+    for field in ("rows", "cols", "nnz", "csort"):
+        check(torch.equal(getattr(lsk, field), getattr(sk, field)), f"phase 9: spar_sink_log's sketch {field} differs")
+    log(f"phase 9: seed 0 keeps one support of {nnz} entries (cap {sk.cap}) in spar_sink_coo, spar_sink_dense "
+        f"and spar_sink_log")
+    # B1's float64 cost-only kernel at this path's shape, called as
+    # spar_sink_mf(shared_variates=True) calls it (on the whole padded
+    # sketch), against its plain version and the dense cost's entries
+    geom = problem.geom
+    c64 = geom.cost_entries(sk.rows, sk.cols)
+    c64_r = gathered_cost_ref(geom.x, geom.y, sk.rows, sk.cols, cost=geom.cost_name, eta=geom.eta)
+    c_dense = geom.cost[sk.rows, sk.cols]
+    excess = {name: cost64_excess(geom.x, geom.y, sk.rows, sk.cols, c64, ref, geom.cost_name, geom.eta)
+              for name, ref in (("plain", c64_r), ("dense", c_dense))}
+    for name, value in excess.items():
+        check(value <= 1.0, f"phase 9: the float64 cost-only kernel misses the {name} costs of the sketch by "
+              f"{value!r} x the tolerance")
+    log(f"phase 9: the float64 cost-only kernel on the {sk.cap}-slot sketch: max abs err "
+        f"{_max_abs_err(c64, c64_r)!r} (plain), {_max_abs_err(c64, c_dense)!r} (dense cost); "
+        f"excess over the tolerance {json.dumps(excess)}")
+
+
+def run_sketch_solvers(label: str, problem, v_ref: float, solvers, s: float, seeds: int = 4) -> dict:
+    """Each solver over ``seeds`` seeds after one untimed warm-up solve (seed
+    ``seeds``): value, iterations, status, warm wall (synced), relative
+    error against ``v_ref``, with its launches checked; returns each
+    method's seed-0 `Solution` and mean relative error."""
+    out = {}
+    for method, opts in solvers:
+        solve_synced(problem, method, seed=seeds, s=s, tol=1e-6, max_iter=1000, **opts)
+        runs, first = [], None
+        for seed in range(seeds):
+            sol, value, wall, launches = solve_synced(problem, method, seed=seed, s=s, tol=1e-6, max_iter=1000,
+                                                      **opts)
+            want = {"gathered_cost": 1} if opts.get("shared_variates") else {}
+            check(launches == want, f"phase 9 {label} {method}: the solve launched {launches}, not {want}")
+            check(math.isfinite(value), f"phase 9 {label} {method} seed {seed}: value {value} is not finite")
+            runs.append(dict(seed=seed, value=value, n_iter=int(sol.n_iter), status=sol.status_label,
+                             wall_s=wall, rel_err=abs(value - v_ref) / abs(v_ref), nnz=int(sol.nnz),
+                             overflowed=bool(sol.overflowed) if sol.overflowed is not None else None,
+                             launches=launches))
+            first = sol if first is None else first
+        mean = sum(r["rel_err"] for r in runs) / seeds
+        log(f"phase 9 {label} n={problem.shape[0]} {method} {json.dumps(opts)}: mean relative error {mean!r}, "
+            f"runs {json.dumps(runs)}")
+        out[method] = (first, mean)
+    return out
+
+
+def greenkhorn_per_update(problem, updates: int = 64) -> tuple[float, float]:
+    """Greenkhorn's device kernels and device microseconds an update, from
+    `torch.profiler` over ``updates`` updates less a run of none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.baselines import greenkhorn
+
+    K = problem.kernel()
+
+    def kernels(n_updates: int) -> tuple[int, float]:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            greenkhorn(K, problem.a, problem.b, n_updates, fe=float(problem.fe))
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        return sum(e.count for e in events), sum(e.self_device_time_total for e in events)
+
+    c0, t0 = kernels(0)
+    c1, t1 = kernels(updates)
+    return (c1 - c0) / updates, (t1 - t0) / updates
+
+
+def run_competitors(problem, v_ref: float) -> None:
+    """Greenkhorn at its default 5(n + m) updates, Nys-Sink at its default
+    rank n/20 and Screenkhorn-lite at decimation 3: value, relative error,
+    wall (synced), and Greenkhorn's launches and device time an update."""
+    n, m = problem.shape
+    per_update, dev_us = greenkhorn_per_update(problem)
+    runs = [("greenkhorn", {}), ("nys_sink", dict(seed=0)), ("screenkhorn_lite", {})]
+    for method, opts in runs:
+        if method != "greenkhorn":  # an untimed warm-up (greenkhorn's is its profiled runs)
+            solve_synced(problem, method, **dict(opts, **({"seed": 1} if "seed" in opts else {})))
+        sol, value, wall, launches = solve_synced(problem, method, **opts)
+        check(launches == {}, f"phase 9 {method}: launched {launches}")
+        check(math.isfinite(value), f"phase 9 {method}: value {value} is not finite")
+        row = dict(method=method, n=n, value=value, rel_err=abs(value - v_ref) / abs(v_ref), n_iter=int(sol.n_iter),
+                   status=sol.status_label, wall_s=wall)
+        if method == "greenkhorn":
+            updates = int(sol.n_iter)
+            row.update(updates=updates, launches_per_update=per_update, device_us_per_update=dev_us,
+                       host_us_per_update=wall / updates * 1e6, busy=dev_us * updates / 1e6 / wall)
+            check(updates == 5 * (n + m), f"greenkhorn ran {updates} updates, not 5(n + m)")
+        log("phase 9 competitor " + json.dumps(row))
+
+
+def separated(n: int, d: int, seed: int = 0):
+    """`benchmarks.bench_rmae_vs_eps._separated`'s recipe: uniform x, y a
+    permutation of x shifted by 0.5 (costs bounded below), Dirichlet
+    marginals; the permutation is drawn by numpy here (the reference draws
+    it with `jax.random.permutation(PRNGKey(9), n)`)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(n, d))
+    y = x[np.random.default_rng(9).permutation(n)] + 0.5
+    return x, y, rng.dirichlet(np.ones(n)), rng.dirichlet(np.ones(n))
+
+
+def run_eps_sweep(device) -> None:
+    """`benchmarks.bench_rmae_vs_eps` at BENCH_eps.json's settings on the card:
+    spar_sink_coo, spar_sink_log and spar_sink_mf(stabilize=True) over
+    EPS_SWEEP's eps, OT and UOT (masses 5/3, lam = 0.5), RMAE against the
+    ``log`` oracle at tol 1e-10, each beside the reference's CPU row; then
+    the reference's smoke acceptance on OT: both log-domain methods finite
+    at eps = 1e-3 and within 2x of spar_sink_coo's RMAE at eps = 1e-1."""
+    import repro_torch as rt
+    from repro_torch.core.sinkhorn import STATUS_LABELS
+
+    cfg = EPS_SWEEP
+    n = cfg["n"]
+    reference = {r["name"]: r for r in json.loads((Path(__file__).resolve().parent / "BENCH_eps.json").read_text())
+                 ["results"]}
+    x, y, a, b = separated(n, cfg["d"])
+    s = cfg["s_mult"] * rt.s0(n)
+    geom, pc = rt.Geometry.from_points(x, y, device=device), rt.PointCloudGeometry(x, y, device=device)
+    rmae = {}
+    for kind, lam in (("ot", None), ("uot", 0.5)):
+        for eps in cfg["eps_grid"]:
+            if lam is None:
+                problem, pc_problem = rt.OTProblem(geom, a, b, eps), rt.OTProblem(pc, a, b, eps)
+            else:
+                problem = rt.UOTProblem(geom, 5 * a, 3 * b, eps, lam=lam)
+                pc_problem = rt.UOTProblem(pc, 5 * a, 3 * b, eps, lam=lam)
+            oracle, truth, t_oracle, _ = solve_synced(problem, "log", tol=1e-10, max_iter=50_000)
+            log(f"eps sweep {kind} eps={eps:g}: log oracle {truth!r} ({int(oracle.n_iter)} it, "
+                f"{oracle.status_label}, {t_oracle!r} s)")
+            for method in EPS_SWEEP_METHODS:
+                prob, opts = (pc_problem, dict(stabilize=True)) if method == "spar_sink_mf" else (problem, {})
+                vals, codes, walls = [], [], []
+                for i in range(cfg["n_rep"]):
+                    sol, value, wall, _ = solve_synced(prob, method, seed=i, s=s, tol=cfg["tol"],
+                                                       max_iter=cfg["max_iter"], **opts)
+                    vals.append(value)
+                    codes.append(int(sol.status))
+                    walls.append(wall)
+                err = sum(abs(v - truth) / abs(truth) for v in vals) / len(vals)
+                rmae[(kind, eps, method)] = err
+                ref = reference[f"eps/{kind}/{method}/eps{eps:g}"]
+                log(f"eps sweep {kind} eps={eps:g} {method}: rmae {err!r}, worst status {STATUS_LABELS[max(codes)]}, "
+                    f"walls {walls!r} s; the reference's CPU figure (BENCH_eps.json, its own permutation): "
+                    f"rmae {ref['rmae']!r}, worst status {ref['status']}")
+    for kind in ("ot", "uot"):
+        base = rmae[(kind, 1e-1, "spar_sink_coo")]
+        holds = {m: rmae[(kind, 1e-3, m)] for m in ("spar_sink_log", "spar_sink_mf")}
+        ok = all(math.isfinite(v) and v <= 2.0 * base for v in holds.values())
+        log(f"eps sweep {kind}: RMAE at eps=1e-3 {json.dumps(holds)} against 2 x spar_sink_coo's at 1e-1 "
+            f"({2.0 * base!r}): {'holds' if ok else 'fails'}")
+        if kind == "ot":  # the reference's smoke asserts it on OT
+            check(ok, "eps sweep: the reference's smoke acceptance fails on OT")
+
+
+def run_estimators_phase(n: int, device, v_log: float) -> None:
+    """Phase 9 (see the module docstring)."""
+    import torch
+
+    import repro_torch as rt
+    from repro_torch.data.pointclouds import make_measures
+
+    t_phase = time.perf_counter()
+    eps = 0.1
+    s = 16 * rt.s0(n)
+    a, b, x = make_measures("C1", n, 5, seed=1)
+    ot = rt.OTProblem(rt.PointCloudGeometry(x, device=device), a, b, eps)
+    check_shared_support(ot, s, device)
+    torch.cuda.empty_cache()
+    ot_runs = run_sketch_solvers("OT", ot, v_log, SKETCH_SOLVERS, s)
+    coo, mf = ot_runs["spar_sink_coo"][0], ot_runs["spar_sink_mf"][0]
+    check(torch.equal(coo.result.u, mf.result.u) and torch.equal(coo.result.v, mf.result.v),
+          "phase 9: spar_sink_mf(shared_variates=True) scalings differ from spar_sink_coo's")
+    again, value, _, _ = solve_synced(ot, "spar_sink_coo", seed=0, s=s, tol=1e-6, max_iter=1000)
+    check(value == float(coo.value) and torch.equal(again.result.u, coo.result.u)
+          and torch.equal(again.result.v, coo.result.v), "phase 9: two spar_sink_coo solves of seed 0 differ")
+    # the values differ only in the gathered costs: the kernel's against the dense cost's entries
+    check(abs(float(mf.value) - float(coo.value)) <= 1e-12 * abs(float(coo.value)),
+          f"phase 9: spar_sink_mf(shared_variates=True) value {float(mf.value)!r} is not spar_sink_coo's "
+          f"{float(coo.value)!r} to 1e-12")
+    log(f"phase 9: spar_sink_mf(shared_variates=True) scalings bitwise spar_sink_coo's, values within 1e-12 "
+        f"({float(mf.value)!r}, {float(coo.value)!r}); two spar_sink_coo solves of seed 0 bitwise equal")
+    rmae = ot_runs["spar_sink_coo"][1]
+    check(rmae < 0.25, f"phase 9: spar_sink_coo mean relative error {rmae} >= 0.25")
+    del ot_runs, coo, mf, again
+    torch.cuda.empty_cache()
+    run_competitors(ot, v_log)
+    del ot
+    torch.cuda.empty_cache()
+    _, uot = block_ell_problems(n, device)
+    oracle, v_uot, t_oracle, _ = solve_synced(uot, "log", tol=1e-9, max_iter=20_000)
+    log(f"phase 9 UOT n={n}: log oracle {v_uot!r} ({int(oracle.n_iter)} it, {oracle.status_label}, {t_oracle!r} s)")
+    del oracle
+    run_sketch_solvers("UOT", uot, v_uot, UOT_SKETCH_SOLVERS, s)
+    del uot
+    torch.cuda.empty_cache()
+    t_sweep = time.perf_counter()
+    run_eps_sweep(device)
+    log(f"phase 9: eps sweep {time.perf_counter() - t_sweep!r} s; phase {time.perf_counter() - t_phase!r} s")
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
 # Phase 5: the fused dense path at full width
 # --------------------------------------------------------------------------
 
@@ -2759,6 +3050,7 @@ def main() -> int:
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
     v_log = check_accuracy(8192, device)
+    run_estimators_phase(8192, device, v_log)
     fused_launches, x, u, v = run_fused_path(n, device)
     for entry in online_entries:
         entry["launches"] = fused_launches[entry["name"]]

@@ -6,8 +6,12 @@ from repro_torch.core.api.solution import Solution, SparsePlan
 from repro_torch.core.api.solvers import (
     DEFAULT_TOL,
     build_block_ell_sketch,
+    build_coo_log_sketch,
+    build_coo_sketch,
     build_mf_log_sketch,
     build_mf_sketch,
+    mix_uniform,
+    sampling_probs,
 )
 
 __all__ = [
@@ -21,9 +25,13 @@ __all__ = [
     "UOTProblem",
     "available_methods",
     "build_block_ell_sketch",
+    "build_coo_log_sketch",
+    "build_coo_sketch",
     "build_mf_log_sketch",
     "build_mf_sketch",
     "get_solver",
+    "mix_uniform",
     "register_solver",
+    "sampling_probs",
     "solve",
 ]

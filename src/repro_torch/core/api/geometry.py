@@ -22,6 +22,7 @@ from repro_torch.core.geometry import (
     euclidean_cost,
     gathered_cost,
     gibbs_kernel,
+    grid_support_2d,
     log_gibbs_kernel,
     normalize_cost,
     squared_euclidean_cost,
@@ -70,6 +71,15 @@ class Geometry:
         y = None if y is None else as_tensor(y, device)
         d = None if d is None else as_tensor(d, device)
         return cls(wfr_cost(x, y, eta=eta, d=d))
+
+    @classmethod
+    def from_grid(cls, h: int, w: int, *, eta: float | None = None, dtype=torch.float64, device=None) -> "Geometry":
+        """The squared-euclidean cost (``eta=None``) or the WFR cost of range
+        ``pi * eta`` between the points of an h x w pixel grid in [0,1]^2."""
+        pts = grid_support_2d(h, w, dtype=dtype, device=device)
+        if eta is None:
+            return cls(squared_euclidean_cost(pts, pts))
+        return cls(wfr_cost(pts, eta=eta))
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -124,7 +134,8 @@ class PointCloudGeometry(Geometry):
     ``Geometry.from_points`` / ``Geometry.wfr``. The matrix-free solver uses
 
     * ``entries(rows, cols, eps)``: gathered ``(K_e, C_e)`` at k pairs;
-    * ``cost_entries(rows, cols)``: raw costs only.
+    * ``cost_entries(rows, cols)``: raw costs only;
+    * ``cost_block(i0, i1, j0, j1)``: one dense tile of the cost.
 
     Costs: ``"sqeuclidean"`` (paper Sec. 5.1) and ``"wfr"`` (Sec. 2.2).
     """
@@ -178,13 +189,22 @@ class PointCloudGeometry(Geometry):
             )
         return cls(x, y, cost="wfr", eta=eta, device=device)
 
+    @classmethod
+    def from_grid(cls, h: int, w: int, *, eta: float | None = None, dtype=torch.float64, device=None) -> "Geometry":
+        """The points of an h x w pixel grid in [0,1]^2, squared-euclidean
+        (``eta=None``) or WFR of range ``pi * eta``."""
+        pts = grid_support_2d(h, w, dtype=dtype, device=device)
+        if eta is None:
+            return cls(pts)
+        return cls(pts, cost="wfr", eta=eta)
+
     def _check_guard(self, what: str) -> None:
         n, m = self.shape
         if max(n, m) > self.dense_guard:
             raise ValueError(
                 f"PointCloudGeometry({n}x{m}) refuses dense {what} "
                 f"materialization (dense_guard={self.dense_guard}); use "
-                f"entries() or solve(..., method='spar_sink_mf')"
+                f"entries()/cost_block() or solve(..., method='spar_sink_mf')"
             )
 
     @property
@@ -269,6 +289,13 @@ class PointCloudGeometry(Geometry):
             c_e = gathered_sketch_cost(self.x, self.y, rows, cols, cost=self.cost_name, eta=self.eta)
             return c_e if c_e.dtype == self.dtype else c_e.to(self.dtype)
         return gathered_cost(self.x, self.y, rows, cols, cost=self.cost_name, eta=self.eta)
+
+    def cost_block(self, i0: int, i1: int, j0: int, j1: int) -> torch.Tensor:
+        """The dense cost sub-tile ``C[i0:i1, j0:j1]`` (for streaming
+        consumers), whatever ``dense_guard`` says."""
+        if self.cost_name == "wfr":
+            return wfr_cost(self.x[i0:i1], self.y[j0:j1], eta=self.eta)
+        return squared_euclidean_cost(self.x[i0:i1], self.y[j0:j1])
 
     def __repr__(self) -> str:
         n, m = self.shape

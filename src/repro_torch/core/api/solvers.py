@@ -1,26 +1,47 @@
 """The built-in solver registry entries behind ``solve(problem, method=...)``.
 
-================= ==========================================================
-``dense``         Algorithm 1/2 on the dense Gibbs kernel (scaling domain);
-                  the accuracy oracle of the sketching solver
-``log``           log-domain Algorithm 1/2 (small-``eps`` safe)
-``spar_sink_mf``  matrix-free Algorithms 3/4 on a `PointCloudGeometry`:
-                  factorized O(s log n) Poisson sketch + gathered-kernel
-                  evaluation (the CUDA kernel on the card), no (n, m) array
-                  anywhere; ``stabilize=True`` runs it in the log domain
-``spar_sink_block_ell``
-                  the importance sketch drawn at (Bk x Bk) tile granularity,
-                  stored in block-ELL layout with its transpose; both
-                  mat-vecs of an iteration are the CUDA block-ELL kernel on
-                  the card (scaling domain: needs ``eps`` large enough that
-                  ``exp(-C/eps) > 0``); builds the dense kernel
-================= ==========================================================
+Eleven methods, one `Solution` contract (the reference's eleven):
+
+======================= ========================================================
+``dense``               Algorithm 1/2 on the dense Gibbs kernel (scaling domain)
+``log``                 log-domain Algorithm 1/2 (small-``eps`` safe)
+``spar_sink_coo``       paper Algorithms 3/4: the eq. (7) importance sketch of
+                        the dense kernel as a padded COO, O(s) per iteration
+                        (scaling domain: needs ``eps`` large enough that
+                        ``exp(-C/eps) > 0``)
+``spar_sink_log``       the same sketch carried as ``logvals = -C_e/eps -
+                        log p*_e`` and iterated by segment-logsumexp on
+                        potentials (safe for ``eps`` down to 1e-3)
+``spar_sink_mf``        matrix-free Algorithms 3/4 on a `PointCloudGeometry`:
+                        factorized O(s log n) Poisson sketch + gathered-kernel
+                        evaluation (the CUDA kernel on the card), no (n, m)
+                        array anywhere; ``stabilize=True`` runs it in the log
+                        domain; ``shared_variates=True`` (small-n test mode)
+                        draws ``spar_sink_coo``'s (or ``spar_sink_log``'s)
+                        sketch instead
+``spar_sink_block_ell`` the importance sketch drawn at (Bk x Bk) tile
+                        granularity, stored in block-ELL layout with its
+                        transpose; both mat-vecs of an iteration are the CUDA
+                        block-ELL kernel on the card (scaling domain); builds
+                        the dense kernel
+``spar_sink_dense``     the exact eq. (7) sketch as a dense masked array
+                        (the reference of ``spar_sink_coo``)
+``rand_sink``           ``spar_sink_coo`` with uniform probabilities (baseline)
+``greenkhorn``          greedy single-row/col updates (Altschuler et al. 2017)
+``nys_sink``            Nystrom low-rank kernel + Sinkhorn (Altschuler 2019)
+``screenkhorn_lite``    static active-set screening (simplified Alaya 2019)
+======================= ========================================================
 
 Every solver takes `OTProblem` and `UOTProblem` (``fe = lam/(lam+eps)``
 comes from the problem; ``lam = inf`` degenerates to the balanced form), and
-every one defaults to the same stopping tolerance ``DEFAULT_TOL = 1e-6``.
+every iterative one defaults to the same stopping tolerance
+``DEFAULT_TOL = 1e-6``. The sketching solvers (and ``nys_sink``) take their
+random source as ``generator=`` (a `torch.Generator` on the problem's
+device) or ``seed=``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -29,6 +50,7 @@ from repro_torch.core.api.geometry import PointCloudGeometry
 from repro_torch.core.api.problems import OTProblem, UOTProblem
 from repro_torch.core.api.registry import register_solver
 from repro_torch.core.api.solution import Solution, SparsePlan
+from repro_torch.core.baselines import greenkhorn, nys_sink, screenkhorn_lite
 from repro_torch.core.sinkhorn import (
     _masked_log,
     generic_scaling_loop,
@@ -41,8 +63,10 @@ from repro_torch.core.sinkhorn import (
     sinkhorn_uot_log,
 )
 from repro_torch.core.spar_sink import (
+    coo_objective_ot,
     coo_objective_ot_entries,
     coo_objective_ot_log_entries,
+    coo_objective_uot,
     coo_objective_uot_entries,
     coo_objective_uot_log_entries,
     default_cap,
@@ -53,6 +77,8 @@ from repro_torch.core.spar_sink import (
 __all__ = [
     "DEFAULT_TOL",
     "build_block_ell_sketch",
+    "build_coo_log_sketch",
+    "build_coo_sketch",
     "build_mf_log_sketch",
     "build_mf_sketch",
     "mix_uniform",
@@ -107,6 +133,58 @@ def _resolve_probs(problem: OTProblem, probs: torch.Tensor | None, shrinkage: fl
     """The probability rule of the dense sketch paths: explicit ``probs``,
     else eq. (9)/(11) by problem type, then uniform mixing."""
     return mix_uniform(probs if probs is not None else sampling_probs(problem), shrinkage)
+
+
+# --------------------------------------------------------------------------
+# The eq. (7) Bernoulli sketches of the dense kernel
+# --------------------------------------------------------------------------
+
+
+def build_coo_sketch(
+    problem: OTProblem,
+    generator: torch.Generator,
+    s: float,
+    *,
+    cap: int | None = None,
+    probs: torch.Tensor | None = None,
+    shrinkage: float = 0.0,
+) -> sparsify.SparseKernelCOO:
+    """Importance-sparsified padded COO sketch of the problem's Gibbs kernel
+    (`sparsify.sparsify_coo`; ``cap`` defaults to `default_cap`)."""
+    probs = _resolve_probs(problem, probs, shrinkage)
+    cap = default_cap(s) if cap is None else cap
+    return sparsify.sparsify_coo(generator, problem.kernel(), probs, s, cap)
+
+
+def build_coo_log_sketch(
+    problem: OTProblem,
+    generator: torch.Generator,
+    s: float,
+    *,
+    cap: int | None = None,
+    probs: torch.Tensor | None = None,
+    shrinkage: float = 0.0,
+) -> tuple[sparsify.LogSparseKernelCOO, torch.Tensor]:
+    """Log-space importance sketch and its index-aligned gathered costs.
+
+    OT (and explicit ``probs``): `build_coo_sketch`'s draw, so the same
+    generator state keeps the same support, with ``logvals = -C_e/eps -
+    log p*_e``. UOT: the eq. (11) probabilities are computed, normalized,
+    mixed with ``shrinkage`` and drawn in log space
+    (`sparsify.uot_sampling_logprobs`), so a sharply concentrated
+    small-``eps`` distribution keeps its support.
+    """
+    cap = default_cap(s) if cap is None else cap
+    cost = problem.geom.cost
+    eps = float(problem.eps)
+    if probs is None and _is_uot(problem):
+        logp = sparsify.uot_sampling_logprobs(problem.a, problem.b, cost, float(problem.lam), eps)
+        if shrinkage > 0.0:  # mix_uniform in log space (Thm 1 condition (ii))
+            n, m = problem.shape
+            logp = torch.logaddexp(math.log1p(-shrinkage) + logp, math.log(shrinkage) - math.log(float(n * m)))
+        return sparsify.sparsify_coo_log(generator, cost, None, eps, s, cap, logprobs=logp)
+    probs = _resolve_probs(problem, probs, shrinkage)
+    return sparsify.sparsify_coo_log(generator, cost, probs, eps, s, cap)
 
 
 # --------------------------------------------------------------------------
@@ -238,6 +316,55 @@ def _coo_log_value(problem: OTProblem, sk, c_e, res) -> torch.Tensor:
     return coo_objective_ot_log_entries(sk, c_e, res, problem.eps)
 
 
+def _coo_cost_value(problem: OTProblem, sk, res) -> torch.Tensor:
+    """O(cap) entropic objective reading the kept entries of the dense cost."""
+    if _is_uot(problem):
+        return coo_objective_uot(
+            sk, problem.geom.cost, res, problem.a, problem.b, float(problem.lam), problem.eps
+        )
+    return coo_objective_ot(sk, problem.geom.cost, res, problem.eps)
+
+
+def _coo_solution(method: str, problem: OTProblem, sk, res, value) -> Solution:
+    """The `Solution` of a scaling-domain sketch solve; its plan is the
+    `SparsePlan` ``u_i K~_e v_j`` on the kept entries."""
+
+    def plan() -> SparsePlan:
+        return SparsePlan(sk.rows, sk.cols, res.u[sk.rows] * sk.vals * res.v[sk.cols], sk.nnz, sk.n, sk.m)
+
+    return Solution(
+        method=method, problem=problem, value=value, result=res, domain="scaling",
+        nnz=sk.nnz, overflowed=sk.overflowed, _plan_thunk=plan,
+    )
+
+
+def _sparse_log_solution(method: str, problem: OTProblem, sk, c_e, tol: float, max_iter: int) -> Solution:
+    """The log-domain iteration on a log-space sketch, its objective from
+    the gathered costs ``c_e``, and its ``domain="log"`` `Solution`."""
+    res = _sparse_log_loop(problem, sk, tol, max_iter)
+    value = _coo_log_value(problem, sk, c_e, res)
+    eps = float(problem.eps)
+
+    def plan() -> SparsePlan:
+        return SparsePlan(sk.rows, sk.cols, log_plan_entries(sk, res, eps), sk.nnz, sk.n, sk.m)
+
+    return Solution(
+        method=method, problem=problem, value=value, result=res, domain="log",
+        nnz=sk.nnz, overflowed=sk.overflowed, _plan_thunk=plan,
+    )
+
+
+def _dense_solution(problem: OTProblem, method: str, res, Kt: torch.Tensor, *, nnz=None) -> Solution:
+    """The `Solution` whose plan is the dense ``diag(u) Kt diag(v)``. The plan
+    is rebuilt by the thunk, not kept: a `Solution` pins only ``Kt`` (for
+    the dense solvers the kernel that the Geometry's cache holds anyway)."""
+    value = problem.objective(plan_from_scalings(res.u, Kt, res.v))
+    return Solution(
+        method=method, problem=problem, value=value, result=res, domain="scaling", nnz=nnz,
+        _plan_thunk=lambda: plan_from_scalings(res.u, Kt, res.v),
+    )
+
+
 # --------------------------------------------------------------------------
 # Dense-kernel solvers
 # --------------------------------------------------------------------------
@@ -253,13 +380,7 @@ def _solve_dense(problem: OTProblem, *, tol: float = DEFAULT_TOL, max_iter: int 
         res = sinkhorn_uot(
             K, problem.a, problem.b, problem.lam, problem.eps, tol=tol, max_iter=max_iter
         )
-    # the plan is rebuilt by the thunk, not kept: a Solution pins only K,
-    # which the Geometry's cache holds anyway
-    value = problem.objective(plan_from_scalings(res.u, K, res.v))
-    return Solution(
-        method="dense", problem=problem, value=value, result=res, domain="scaling",
-        _plan_thunk=lambda: plan_from_scalings(res.u, K, res.v),
-    )
+    return _dense_solution(problem, "dense", res, K)
 
 
 @register_solver("log")
@@ -281,8 +402,59 @@ def _solve_log(problem: OTProblem, *, tol: float = DEFAULT_TOL, max_iter: int = 
 
 
 # --------------------------------------------------------------------------
-# The matrix-free sketching solver (paper Algorithms 3 & 4)
+# Sketching solvers (paper Algorithms 3 & 4 and the Rand-Sink baseline)
 # --------------------------------------------------------------------------
+
+
+@register_solver("spar_sink_coo")
+def _solve_spar_sink_coo(
+    problem: OTProblem,
+    *,
+    s: float,
+    generator: torch.Generator | None = None,
+    seed: int | None = None,
+    cap: int | None = None,
+    shrinkage: float = 0.0,
+    probs: torch.Tensor | None = None,
+    tol: float = DEFAULT_TOL,
+    max_iter: int = 1000,
+) -> Solution:
+    """Spar-Sink on the padded-COO sketch (`build_coo_sketch`): O(s)
+    iterations of sorted segment sums, an O(cap) plan. Scaling domain: at
+    small ``eps`` the sketch underflows, and the solve stops ``degenerate``,
+    or ``non_finite`` at its first iteration where a denormal ``K~ v``
+    makes ``a / K~ v`` overflow; use ``spar_sink_log`` there."""
+    sk = build_coo_sketch(problem, _generator(problem, generator, seed), s, cap=cap, probs=probs,
+                          shrinkage=shrinkage)
+    return _spar_sink_coo_on(problem, sk, tol, max_iter)
+
+
+def _spar_sink_coo_on(problem: OTProblem, sk, tol: float, max_iter: int, method: str = "spar_sink_coo") -> Solution:
+    """Everything of ``spar_sink_coo`` after the sketch."""
+    res = _coo_scaling_loop(problem, sk, tol, max_iter)
+    return _coo_solution(method, problem, sk, res, _coo_cost_value(problem, sk, res))
+
+
+@register_solver("spar_sink_log")
+def _solve_spar_sink_log(
+    problem: OTProblem,
+    *,
+    s: float,
+    generator: torch.Generator | None = None,
+    seed: int | None = None,
+    cap: int | None = None,
+    shrinkage: float = 0.0,
+    probs: torch.Tensor | None = None,
+    tol: float = DEFAULT_TOL,
+    max_iter: int = 1000,
+) -> Solution:
+    """Log-domain Spar-Sink, safe for small ``eps``: ``spar_sink_coo``'s
+    sketch (the same support for the same generator state on OT problems)
+    carried as ``logvals`` (`build_coo_log_sketch`), iterated by sorted
+    segment-logsumexp on potentials. Returns a ``domain="log"`` `Solution`."""
+    sk, c_e = build_coo_log_sketch(problem, _generator(problem, generator, seed), s, cap=cap, probs=probs,
+                                   shrinkage=shrinkage)
+    return _sparse_log_solution("spar_sink_log", problem, sk, c_e, tol, max_iter)
 
 
 @register_solver("spar_sink_mf")
@@ -294,6 +466,7 @@ def _solve_spar_sink_mf(
     seed: int | None = None,
     cap: int | None = None,
     impl: str = "auto",
+    shared_variates: bool = False,
     stabilize: bool = False,
     tol: float = DEFAULT_TOL,
     max_iter: int = 1000,
@@ -311,33 +484,78 @@ def _solve_spar_sink_mf(
     matrix-free, safe for small ``eps`` where the scaling-domain sketch
     underflows ``exp(-C/eps)``. It returns a ``domain="log"`` `Solution`;
     ``impl`` does not apply to it (it gathers raw costs only).
+
+    ``shared_variates=True`` is the small-n test mode: it draws the dense
+    Bernoulli sketch of ``spar_sink_coo`` (``spar_sink_log`` with
+    ``stabilize=True``), which needs the dense kernel and so stays under the
+    geometry's ``dense_guard``; the scalings are then bitwise those of that
+    solver for the same generator state, and only the objective differs
+    (costs gathered by `PointCloudGeometry.cost_entries`, on the card the
+    float64 cost-only kernel, against the dense cost's entries).
     """
-    _mf_geometry(problem)
+    geom = _mf_geometry(problem)
     gen = _generator(problem, generator, seed)
     if stabilize:
-        sk, c_e = build_mf_log_sketch(problem, gen, s, cap=cap)
-        res = _sparse_log_loop(problem, sk, tol, max_iter)
-        value = _coo_log_value(problem, sk, c_e, res)
-        eps = float(problem.eps)
-
-        def plan() -> SparsePlan:
-            return SparsePlan(sk.rows, sk.cols, log_plan_entries(sk, res, eps), sk.nnz, sk.n, sk.m)
-
-        domain = "log"
+        if shared_variates:
+            sk, c_e = build_coo_log_sketch(problem, gen, s, cap=cap)
+        else:
+            sk, c_e = build_mf_log_sketch(problem, gen, s, cap=cap)
+        return _sparse_log_solution("spar_sink_mf", problem, sk, c_e, tol, max_iter)
+    if shared_variates:
+        sk = build_coo_sketch(problem, gen, s, cap=cap)
+        c_e = geom.cost_entries(sk.rows, sk.cols)
     else:
         sk, c_e = build_mf_sketch(problem, gen, s, cap=cap, impl=impl)
-        res = _coo_scaling_loop(problem, sk, tol, max_iter)
-        value = _coo_value(problem, sk, c_e, res)
+    res = _coo_scaling_loop(problem, sk, tol, max_iter)
+    return _coo_solution("spar_sink_mf", problem, sk, res, _coo_value(problem, sk, c_e, res))
 
-        def plan() -> SparsePlan:
-            t_e = res.u[sk.rows] * sk.vals * res.v[sk.cols]
-            return SparsePlan(sk.rows, sk.cols, t_e, sk.nnz, sk.n, sk.m)
 
-        domain = "scaling"
-    return Solution(
-        method="spar_sink_mf", problem=problem, value=value, result=res, domain=domain,
-        nnz=sk.nnz, overflowed=sk.overflowed, _plan_thunk=plan,
+@register_solver("rand_sink")
+def _solve_rand_sink(
+    problem: OTProblem,
+    *,
+    s: float,
+    generator: torch.Generator | None = None,
+    seed: int | None = None,
+    cap: int | None = None,
+    tol: float = DEFAULT_TOL,
+    max_iter: int = 1000,
+) -> Solution:
+    """``spar_sink_coo`` with uniform probabilities (the paper's Rand-Sink),
+    given as row/col factors in the geometry's dtype
+    (`sparsify.uniform_prob_factors`), so no (n, m) probability array."""
+    n, m = problem.shape
+    probs = sparsify.uniform_prob_factors(n, m, problem.geom.dtype, problem.device)
+    sk = build_coo_sketch(problem, _generator(problem, generator, seed), s, cap=cap, probs=probs)
+    return _spar_sink_coo_on(problem, sk, tol, max_iter, method="rand_sink")
+
+
+@register_solver("spar_sink_dense")
+def _solve_spar_sink_dense(
+    problem: OTProblem,
+    *,
+    s: float,
+    generator: torch.Generator | None = None,
+    seed: int | None = None,
+    shrinkage: float = 0.0,
+    probs: torch.Tensor | None = None,
+    tol: float = DEFAULT_TOL,
+    max_iter: int = 1000,
+) -> Solution:
+    """The exact eq. (7) sketch held as a dense masked array
+    (`sparsify.sparsify_dense`: ``spar_sink_coo``'s draw), iterated by dense
+    mat-vecs: the O(n^2) reference of the sketch solvers (scaling domain)."""
+    gen = _generator(problem, generator, seed)
+    Kt = sparsify.sparsify_dense(gen, problem.kernel(), _resolve_probs(problem, probs, shrinkage), s)
+    return _spar_sink_dense_on(problem, Kt, tol, max_iter)
+
+
+def _spar_sink_dense_on(problem: OTProblem, Kt: torch.Tensor, tol: float, max_iter: int) -> Solution:
+    """Everything of ``spar_sink_dense`` after the sketch ``Kt``."""
+    res = generic_scaling_loop(
+        lambda v: Kt @ v, lambda u: Kt.T @ u, problem.a, problem.b, problem.fe, tol=tol, max_iter=max_iter
     )
+    return _dense_solution(problem, "spar_sink_dense", res, Kt, nnz=torch.sum(Kt > 0))
 
 
 # --------------------------------------------------------------------------
@@ -427,3 +645,60 @@ def _solve_spar_sink_block_ell(
         problem, gen, s, block=block, max_blocks=max_blocks, shrinkage=shrinkage, probs=probs
     )
     return _block_ell_solution(problem, sk, tol, max_iter)
+
+
+# --------------------------------------------------------------------------
+# Competitor solvers (paper Section 5 baselines)
+# --------------------------------------------------------------------------
+
+
+@register_solver("greenkhorn")
+def _solve_greenkhorn(problem: OTProblem, *, n_updates: int | None = None) -> Solution:
+    """Greedy single-coordinate scalings; ``n_updates`` defaults to 5(n+m)."""
+    n, m = problem.shape
+    if n_updates is None:
+        n_updates = 5 * (n + m)
+    K = problem.kernel()
+    res = greenkhorn(K, problem.a, problem.b, n_updates, fe=float(problem.fe))
+    return _dense_solution(problem, "greenkhorn", res, K)
+
+
+@register_solver("nys_sink")
+def _solve_nys_sink(
+    problem: OTProblem,
+    *,
+    generator: torch.Generator | None = None,
+    seed: int | None = None,
+    rank: int | None = None,
+    tol: float = DEFAULT_TOL,
+    max_iter: int = 1000,
+) -> Solution:
+    """Nystrom low-rank kernel (``rank`` landmarks, default ``min(n, m)/20``,
+    at least 2) + Sinkhorn. Needs a near-PSD K (it fails on WFR). The
+    objective is taken on a transient dense plan; the `Solution` keeps the
+    O(n r) factors and rebuilds the plan on first access."""
+    n, m = problem.shape
+    if rank is None:
+        rank = max(2, min(n, m) // 20)
+    res, nk = nys_sink(
+        _generator(problem, generator, seed), problem.kernel(), problem.a, problem.b, rank,
+        tol=tol, max_iter=max_iter, fe=problem.fe,
+    )
+    value = problem.objective(plan_from_scalings(res.u, nk.dense(), res.v))
+    return Solution(
+        method="nys_sink", problem=problem, value=value, result=res, domain="scaling",
+        _plan_thunk=lambda: plan_from_scalings(res.u, nk.dense(), res.v),
+    )
+
+
+@register_solver("screenkhorn_lite")
+def _solve_screenkhorn_lite(
+    problem: OTProblem, *, decimation: int = 3, tol: float = DEFAULT_TOL, max_iter: int = 1000
+) -> Solution:
+    """Static active-set screening; screened-out atoms keep zero scalings."""
+    K = problem.kernel()
+    res, _, _ = screenkhorn_lite(
+        K, problem.a, problem.b, decimation=decimation, tol=tol, max_iter=max_iter,
+        fe=problem.fe, renormalize=problem.is_balanced,
+    )
+    return _dense_solution(problem, "screenkhorn_lite", res, K)

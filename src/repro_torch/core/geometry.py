@@ -15,10 +15,14 @@ import math
 
 import torch
 
+from repro_torch._device import resolve_device
+
 __all__ = [
     "euclidean_cost",
     "gathered_cost",
     "gibbs_kernel",
+    "grid_support_2d",
+    "kernel_from_points",
     "log_gibbs_kernel",
     "normalize_cost",
     "squared_euclidean_cost",
@@ -114,3 +118,18 @@ def normalize_cost(cost: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     finite = torch.where(torch.isinf(cost), 0.0, cost)
     scale = torch.clamp_min(torch.max(finite), 1e-30)
     return cost / scale, scale
+
+
+def grid_support_2d(h: int, w: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Pixel-grid support points in [0,1]^2, row-major (image OT), on
+    ``device`` (``None`` means ``"cuda"``, see `repro_torch._device`)."""
+    dev = resolve_device(device)
+    ys = (torch.arange(h, dtype=dtype, device=dev) + 0.5) / h
+    xs = (torch.arange(w, dtype=dtype, device=dev) + 0.5) / w
+    yy, xx = torch.meshgrid(ys, xs, indexing="ij")
+    return torch.stack([yy.reshape(-1), xx.reshape(-1)], dim=-1)
+
+
+def kernel_from_points(x: torch.Tensor, y: torch.Tensor, eps: float) -> torch.Tensor:
+    """The squared-euclidean Gibbs kernel straight from support points."""
+    return gibbs_kernel(squared_euclidean_cost(x, y), eps)

@@ -3,7 +3,13 @@
 The ported parts of ``repro.core.sparsify``:
 
 * the sampling probabilities: eq. (9) for OT, as row/col factors and
-  dense; eq. (11) for UOT, in log space; uniform (Rand-Sink);
+  dense; eq. (11) for UOT, in log space (also as normalized
+  log-probabilities); uniform (Rand-Sink), dense or as row/col factors;
+* the eq. (7) Bernoulli sketches of a dense kernel: `sparsify_dense` (a
+  dense masked array), `sparsify_coo` (padded COO) and `sparsify_coo_log`
+  (padded COO of ``logvals`` from raw costs). All three draw their keep
+  mask from one `(n, m)` array of uniforms in ``p*``'s dtype
+  (`_keep_mask`), so from one generator state they keep one support;
 * the matrix-free factorized Poisson sketch (eq. 7 for the rank-1
   probabilities of eq. 9, with eq. 11 acceptance thinning for UOT), in the
   scaling domain (`SparseKernelCOO`) and in log space
@@ -30,6 +36,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.core.sinkhorn import _masked_log
 from repro_torch.kernels.block_ell import BlockEllColumns, column_lists
 
@@ -52,14 +59,20 @@ __all__ = [
     "ot_tile_probs",
     "row_offsets",
     "segment_logsumexp",
+    "poisson_keep_probs",
     "segment_sum",
     "sorted_offsets",
     "sparsify_block_ell",
     "sparsify_block_ell_from_uniforms",
+    "sparsify_coo",
+    "sparsify_coo_log",
     "sparsify_coo_mf",
     "sparsify_coo_mf_log",
+    "sparsify_dense",
     "tile_probs_from_elem",
+    "uniform_prob_factors",
     "uniform_probs",
+    "uot_sampling_logprobs",
     "uot_sampling_probs",
 ]
 
@@ -86,9 +99,41 @@ def uot_sampling_probs(a: torch.Tensor, b: torch.Tensor, logK: torch.Tensor, lam
     return torch.where(torch.isneginf(logp), 0.0, p)
 
 
+def uot_sampling_logprobs(a: torch.Tensor, b: torch.Tensor, cost: torch.Tensor, lam: float, eps: float) -> torch.Tensor:
+    """Eq. (11) as normalized log-probabilities, from the raw cost (``+inf``
+    = blocked): the kernel factor stays the exponent ``-C/(2lam+eps)``, so
+    a small ``eps`` or ``lam`` flushes no probability to an exact zero
+    before the sketch samples. `uot_sampling_probs` is its ``exp``."""
+    c_ab = lam / (2.0 * lam + eps)
+    logk_part = torch.where(torch.isinf(cost), -math.inf, -cost / (2.0 * lam + eps))
+    logp = c_ab * (_masked_log(a)[:, None] + _masked_log(b)[None, :]) + logk_part
+    return logp - torch.logsumexp(logp.reshape(-1), 0)
+
+
 def uniform_probs(n: int, m: int, dtype=torch.float32, device=None) -> torch.Tensor:
-    """Rand-Sink: every element equally likely."""
-    return torch.full((n, m), 1.0 / (n * m), dtype=dtype, device=device)
+    """Rand-Sink: every element equally likely, on ``device`` (``None``
+    means ``"cuda"``, see `repro_torch._device`)."""
+    return torch.full((n, m), 1.0 / (n * m), dtype=dtype, device=resolve_device(device))
+
+
+def uniform_prob_factors(n: int, m: int, dtype=torch.float32, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rand-Sink probabilities as row/col factors ``(fr, fc)``, ``p_ij = fr_i
+    fc_j``, on ``device`` (``None`` means ``"cuda"``): the sketches broadcast
+    them, so no (n, m) probability array is made."""
+    dev = resolve_device(device)
+    return (
+        torch.full((n,), 1.0 / n, dtype=dtype, device=dev),
+        torch.full((m,), 1.0 / m, dtype=dtype, device=dev),
+    )
+
+
+def poisson_keep_probs(probs, s: float) -> torch.Tensor:
+    """``p*_ij = min(1, s p_ij)``, the inclusion probabilities of eq. (7);
+    ``probs`` is an (n, m) array or an ``(fr, fc)`` factor pair."""
+    if isinstance(probs, tuple):
+        fr, fc = probs
+        return torch.clamp_max(s * (fr[:, None] * fc[None, :]), 1.0)
+    return torch.clamp_max(s * probs, 1.0)
 
 
 class SparseKernelCOO(NamedTuple):
@@ -132,6 +177,106 @@ class LogSparseKernelCOO(NamedTuple):
     @property
     def cap(self) -> int:
         return self.rows.shape[0]
+
+
+# --------------------------------------------------------------------------
+# The eq. (7) Bernoulli sketches of a dense kernel
+# --------------------------------------------------------------------------
+
+
+def _keep_mask(generator: torch.Generator, p_star: torch.Tensor) -> torch.Tensor:
+    """The draw every Bernoulli sketch shares: one uniform per entry, in
+    ``p*``'s shape, dtype and device, and ``U < p*``."""
+    return _uniforms(generator, p_star) < p_star
+
+
+def _uniforms(generator: torch.Generator, like: torch.Tensor) -> torch.Tensor:
+    return torch.rand(like.shape, dtype=like.dtype, device=like.device, generator=generator)
+
+
+def sparsify_dense(generator: torch.Generator, K: torch.Tensor, probs, s: float) -> torch.Tensor:
+    """Dense ``K~``: ``K_ij / p*_ij`` with probability ``p*_ij``, else 0."""
+    p_star = poisson_keep_probs(probs, s)
+    keep = _keep_mask(generator, p_star)
+    return torch.where(keep, K / torch.clamp_min(p_star, 1e-300), 0.0)
+
+
+def _padded_support(keep: torch.Tensor, cap: int):
+    """The first ``cap`` kept entries in row-major order as flat indices,
+    padded with the last flat index ``n*m - 1`` (so padding parks at ``(n-1,
+    m-1)`` and the rows stay ascending). Returns ``(flat_idx, valid,
+    true_nnz)``; ``valid`` marks the slots that hold a kept entry."""
+    n, m = keep.shape
+    true_nnz = torch.sum(keep)
+    flat_idx = torch.nonzero_static(keep.reshape(-1), size=cap, fill_value=n * m - 1)[:, 0]
+    valid = torch.arange(cap, device=keep.device) < true_nnz
+    return flat_idx, valid, true_nnz
+
+
+def _coo_layout(cls, flat_idx, true_nnz, w, n: int, m: int):
+    """A row-sorted padded COO sketch of class ``cls`` with weights ``w``
+    at ``flat_idx``, its stable column sort and its draw accounting."""
+    cap = flat_idx.shape[0]
+    cols = flat_idx % m
+    kept = torch.clamp_max(true_nnz, cap)
+    return cls(
+        flat_idx // m, cols, w, kept, n, m,
+        csort=torch.argsort(cols, stable=True),
+        overflowed=true_nnz > cap,
+        n_proposed=true_nnz,
+        n_accepted=kept,
+    )
+
+
+def sparsify_coo(generator: torch.Generator, K: torch.Tensor, probs, s: float, cap: int) -> SparseKernelCOO:
+    """Padded COO sketch of eq. (7) with static capacity ``cap``: the draw
+    of `sparsify_dense`, so the same generator state keeps the same
+    entries. If the draw keeps more than ``cap``, the trailing entries (in
+    row-major order) are dropped and ``overflowed`` is set. ``probs`` is an
+    (n, m) array or an ``(fr, fc)`` factor pair."""
+    n, m = K.shape
+    p_star = poisson_keep_probs(probs, s)
+    keep = _keep_mask(generator, p_star)
+    flat_idx, valid, true_nnz = _padded_support(keep, cap)
+    # each value is K / p* at its index, the same quotient as sparsify_dense
+    vals = K.reshape(-1)[flat_idx] / torch.clamp_min(p_star.reshape(-1)[flat_idx], 1e-300)
+    return _coo_layout(SparseKernelCOO, flat_idx, true_nnz, torch.where(valid, vals, 0.0), n, m)
+
+
+def sparsify_coo_log(
+    generator: torch.Generator,
+    cost: torch.Tensor,
+    probs,
+    eps: float,
+    s: float,
+    cap: int,
+    *,
+    logprobs: torch.Tensor | None = None,
+) -> tuple[LogSparseKernelCOO, torch.Tensor]:
+    """Log-space padded COO sketch from the raw cost matrix, with
+    ``logvals = -C_e/eps - log p*_e``; ``exp(-C/eps)`` is never formed.
+
+    With linear ``probs`` the keep mask is `sparsify_coo`'s draw, so the
+    same generator state keeps the same support. With ``logprobs``
+    (normalized log-probabilities, e.g. `uot_sampling_logprobs`) the keep
+    probabilities ``log p* = min(0, log s + log p)`` and the test ``log U <
+    log p*`` stay in log space, on uniforms of the same shape and dtype.
+
+    Returns ``(sketch, C_e)``: the gathered costs, index-aligned with the
+    sketch (``+inf`` on padded slots).
+    """
+    n, m = cost.shape
+    if logprobs is None:
+        p_star = poisson_keep_probs(probs, s)
+        keep = _keep_mask(generator, p_star)
+        log_pstar = torch.log(torch.clamp_min(p_star, 1e-300))
+    else:
+        log_pstar = torch.clamp_max(math.log(s) + logprobs, 0.0)
+        keep = torch.log(_uniforms(generator, log_pstar)) < log_pstar
+    flat_idx, valid, true_nnz = _padded_support(keep, cap)
+    c_e = torch.where(valid, cost.reshape(-1)[flat_idx], math.inf)
+    logvals = torch.where(valid, -c_e / eps - log_pstar.reshape(-1)[flat_idx], -math.inf)
+    return _coo_layout(LogSparseKernelCOO, flat_idx, true_nnz, logvals, n, m), c_e
 
 
 # --------------------------------------------------------------------------

@@ -84,14 +84,19 @@ def _problem(kind="ot", n=32):
 
 
 def test_registry_lists_methods_and_rejects_bad_calls():
-    assert available_methods() == ["dense", "log", "spar_sink_block_ell", "spar_sink_mf"]
+    methods = ["dense", "greenkhorn", "log", "nys_sink", "rand_sink", "screenkhorn_lite",
+               "spar_sink_block_ell", "spar_sink_coo", "spar_sink_dense", "spar_sink_log", "spar_sink_mf"]
+    assert available_methods() == methods
     assert repro_torch.available_methods() == available_methods()
     problem = _problem()
-    with pytest.raises(KeyError, match="available: dense, log, spar_sink_block_ell, spar_sink_mf"):
-        solve(problem, method="spar_sink_coo")
-    for opt in (dict(shared_variates=True), dict(init=(None, None)), dict(key=0)):
+    with pytest.raises(KeyError, match="available: " + ", ".join(methods)):
+        solve(problem, method="sinkhorn_knopp")
+    for opt in (dict(init=(None, None)), dict(key=0)):
         with pytest.raises(TypeError, match="unexpected option"):
             solve(problem, method="spar_sink_mf", s=100.0, seed=0, **opt)
+    # the small-n test mode is an option of spar_sink_mf now
+    sol = solve(problem, method="spar_sink_mf", s=100.0, seed=0, shared_variates=True)
+    assert sol.method == "spar_sink_mf" and math.isfinite(float(sol.value)) and int(sol.nnz) > 0
     with pytest.raises(TypeError, match=r"requires option\(s\) \['s'\]"):
         solve(problem, method="spar_sink_mf", seed=0)
     with pytest.raises(TypeError, match="exactly one of generator"):

@@ -216,7 +216,7 @@ def test_sampling_probabilities_match_reference():
     pu_j = np.asarray(jsp.uot_sampling_probs(jnp.asarray(5 * a), jnp.asarray(3 * b), jnp.asarray(logK), 0.5, EPS))
     np.testing.assert_allclose(pu_t, pu_j, rtol=1e-12)
     assert (pu_t[0, :5] == 0).all() and abs(pu_t.sum() - 1) < 1e-12
-    np.testing.assert_array_equal(tsp.uniform_probs(8, 4, torch.float64).numpy(),
+    np.testing.assert_array_equal(tsp.uniform_probs(8, 4, torch.float64, device="cpu").numpy(),
                                   np.asarray(jsp.uniform_probs(8, 4, jnp.float64)))
     for bk in (16, 32):
         np.testing.assert_allclose(tsp.ot_tile_probs(*_t(a, b), bk).numpy(),
