@@ -122,7 +122,30 @@ failure exits non-zero):
    = 8192 against its ``log`` value; then the reference's eps sweep
    (``benchmarks/bench_rmae_vs_eps.py`` at BENCH_eps.json's settings: n =
    256, eps 1e-1, 1e-2, 1e-3, OT and UOT) with each RMAE beside the
-   reference's CPU row, and its smoke acceptance on OT.
+   reference's CPU row, and its smoke acceptance on OT;
+10. (run right after phase 6) traces, certificates and warm starts
+   (``trace=``, ``certify=``, ``init=``) and the composite workloads: run
+   (a) again with ``trace=True, certify=True``, bitwise phase 3's run (a),
+   one B1 launch and no other, ``n_matvec`` twice its iterations, the last
+   traced error its ``err``, the reference's ``summary()`` keys, every
+   certificate field finite and the gap not below 0 (the error bound is
+   printed beside the error against phase 5's fused dense objective: a
+   bound below it is a finding, not a failure); the untraced, the traced,
+   and the traced and certified solve in turns (median of 3 each, and each
+   one's device kernels and time by the profiler) and the certify step
+   alone (wall, peak memory, its certificate bitwise the solve's); run (b)
+   certified (bitwise phase 3's, one cost-only launch) and warm-started
+   from its own potentials at tol / 10 (one cost-only launch); phase 6's
+   block-ELL OT solve traced and certified (bitwise phase 6's, one launch
+   of each B4 product an executed iteration); every method on phase 4's
+   OT problem certified (and traced where it takes ``trace=``; Greenkhorn
+   at n + m updates), its bound beside its error against phase 4's
+   ``log`` value; then, each run twice and bitwise equal,
+   ``sinkhorn_divergence`` by ``dense`` and ``spar_sink_coo`` at n = 4096,
+   ``solve_barycenter`` by ``ibp`` and ``spar_ibp`` on a 64 x 64 grid with
+   3 measures (and the L1 distance between them), and ``prox_sinkhorn``
+   and ``prox_spar_sink`` at n = 2048. Phase 10's counted solves add their
+   launches to the kernels line.
 
 ``--profile`` also runs (a), one prefill, one serving decode step and one
 train step under `torch.profiler` and prints where their device time goes.
@@ -1266,10 +1289,11 @@ def compare_gather(old_source: Path, device) -> None:
 EARLIER_RUNS = {"a": (130, -1.2851739752317646), "b": (130, -1.2851739747877857), "c": (64, -5.46044113146657)}
 
 
-def run_main_path(n: int, device, max_iter: int = 200) -> tuple[dict[str, int], float]:
+def run_main_path(n: int, device, max_iter: int = 200) -> tuple[dict[str, int], dict, tuple]:
     """Runs (a)-(c) and the repeat of (a), each sketch first built alone
     (wall, device time, peak memory); returns the kernel launches made by
-    their four solves, and the value of (a)."""
+    their four solves, each run's ``(value, n_iter)`` and run (a)'s
+    scalings."""
     import torch
 
     import repro_torch as rt
@@ -1329,6 +1353,8 @@ def run_main_path(n: int, device, max_iter: int = 200) -> tuple[dict[str, int], 
               f"not {want[0]} and {want[1]}")
         check(sum(counts.values()) == 1, f"({name}) the solve launched other kernels: {counts}")
         results[name] = (value, int(sol.n_iter))
+        if name == "a":
+            scalings_a = sol.result.u, sol.result.v
         it0, v0 = EARLIER_RUNS[name.split("-")[0]]
         log(f"main path ({name}) against the earlier kernel's run: iterations {int(sol.n_iter)} ({it0}), value "
             f"{value!r} ({v0!r}), bitwise {value == v0}, relative difference {abs(value - v0) / abs(v0)!r}")
@@ -1336,7 +1362,7 @@ def run_main_path(n: int, device, max_iter: int = 200) -> tuple[dict[str, int], 
           f"repeated run (a) differs: {results['a']} vs {results['a-repeat']}")
     log("main path: the repeated run (a) is bitwise identical")
     compare_log_sketch(ot, s, device)
-    return total, results["a"][0]
+    return total, results, scalings_a
 
 
 def compare_log_sketch(problem, s: float, device, rounds: int = 2) -> None:
@@ -1572,24 +1598,30 @@ def run_sketch_solvers(label: str, problem, v_ref: float, solvers, s: float, see
     return out
 
 
-def greenkhorn_per_update(problem, updates: int = 64) -> tuple[float, float]:
-    """Greenkhorn's device kernels and device microseconds an update, from
-    `torch.profiler` over ``updates`` updates less a run of none."""
+def device_kernels(fn) -> tuple[int, float]:
+    """The device kernels that one ``fn()`` runs and their device
+    microseconds, from `torch.profiler`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.count for e in events), sum(e.self_device_time_total for e in events)
+
+
+def greenkhorn_per_update(problem, updates: int = 64) -> tuple[float, float]:
+    """Greenkhorn's device kernels and device microseconds an update, from
+    `torch.profiler` over ``updates`` updates less a run of none."""
     from repro_torch.core.baselines import greenkhorn
 
     K = problem.kernel()
 
     def kernels(n_updates: int) -> tuple[int, float]:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            greenkhorn(K, problem.a, problem.b, n_updates, fe=float(problem.fe))
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        return sum(e.count for e in events), sum(e.self_device_time_total for e in events)
+        return device_kernels(lambda: greenkhorn(K, problem.a, problem.b, n_updates, fe=float(problem.fe)))
 
     c0, t0 = kernels(0)
     c1, t1 = kernels(updates)
@@ -2444,6 +2476,317 @@ def check_block_ell_accuracy(n: int, device, v_log: float, s: float, ot_result, 
 
 
 # --------------------------------------------------------------------------
+# Phase 10: traces, certificates, warm starts and the composite workloads
+# --------------------------------------------------------------------------
+
+#: the keys of the reference's `Diagnostics.summary()` for a traced and
+#: certified sketch solve, and of its sketch and certificate parts
+#: (src/repro/obs/trace.py, src/repro/obs/certify.py)
+SUMMARY_KEYS = {"n_iter", "n_matvec", "status", "final_err", "first_traced_iteration", "sketch", "certificate"}
+SKETCH_SUMMARY_KEYS = {"nnz", "cap", "fill", "ess", "ess_ratio", "overflowed", "acceptance_rate", "dup_merge_rate"}
+CERT_SUMMARY_KEYS = {"value", "gap", "rel_gap", "marg_err_row", "marg_err_col", "coverage_deficit", "error_bound",
+                     "ci_low", "ci_high", "ci_width", "ess"}
+#: the methods whose certificate carries no sampling term: NaN CI and ESS,
+#: as in the reference; every other field of every certificate is finite
+UNSAMPLED = ("dense", "log", "greenkhorn", "nys_sink", "screenkhorn_lite", "spar_sink_dense", "spar_sink_block_ell")
+#: phase 10's methods at n = 8192 on phase 4's OT problem (certify=True,
+#: trace=True where the method takes it, s = 16 s0(n) where it takes s,
+#: Greenkhorn at n + m updates)
+EVERY_METHOD = (("dense", {}), ("log", {}), ("spar_sink_coo", dict(seed=0)), ("spar_sink_log", dict(seed=0)),
+                ("spar_sink_mf", dict(seed=0)), ("spar_sink_mf", dict(seed=0, stabilize=True)),
+                ("spar_sink_dense", dict(seed=0)), ("rand_sink", dict(seed=0)), ("spar_sink_block_ell", dict(seed=0)),
+                ("greenkhorn", {}), ("nys_sink", dict(seed=0)), ("screenkhorn_lite", {}))
+
+
+def check_certificate(label: str, cert, sampled: bool) -> dict:
+    """A certificate's fields as floats: each finite (the CI and the ESS
+    NaN where nothing was sampled, as the reference gives them), the gap
+    not below 0 and the bound not below the gap."""
+    fields = {f: float(getattr(cert, f)) for f in cert._fields}
+    for f, v in fields.items():
+        if f in ("ci_low", "ci_high", "ess") and not sampled:
+            check(math.isnan(v), f"{label}: certificate {f} is {v!r}, not NaN")
+        else:
+            check(math.isfinite(v), f"{label}: certificate {f} is {v!r}")
+    check(fields["gap"] >= 0.0 and fields["error_bound"] >= fields["gap"],
+          f"{label}: gap {fields['gap']!r}, error bound {fields['error_bound']!r}")
+    return fields
+
+
+def counted_solve(total: dict, problem, method: str, **opts):
+    """`solve_synced` that also adds the solve's launches into ``total``
+    (the kernels line counts phase 10's solves too)."""
+    sol, value, wall, launches = solve_synced(problem, method, **opts)
+    for name, count in launches.items():
+        total[name] = total.get(name, 0) + count
+    return sol, value, wall, launches
+
+
+def traced_main_path(total: dict, n: int, device, runs: dict, scalings_a, value_dense: float,
+                     max_iter: int = 200) -> None:
+    """Phase 10 (1) and (2): run (a) traced and certified, then run (b)
+    certified and warm-started from its own potentials."""
+    import torch
+
+    import repro_torch as rt
+    from repro_torch.core.api import solvers
+    from repro_torch.data.pointclouds import make_measures
+
+    eps, s = 0.1, 4 * rt.s0(n)
+    a, b, x = make_measures("C1", n, 5, seed=0)
+    ot = rt.OTProblem(rt.PointCloudGeometry(x, device=device), a, b, eps)
+    opts = dict(seed=0, s=s, tol=1e-6, max_iter=max_iter)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sol, value, wall, launches = counted_solve(total, ot, "spar_sink_mf", trace=True, certify=True, **opts)
+    peak = torch.cuda.max_memory_allocated() - base
+    n_iter, d = int(sol.n_iter), sol.diagnostics
+    check(launches == {"gathered_kernel": 1}, f"phase 10 (a): the traced solve launched {launches}")
+    check((value, n_iter) == runs["a"] and torch.equal(sol.result.u, scalings_a[0])
+          and torch.equal(sol.result.v, scalings_a[1]), "phase 10 (a): the traced solve is not phase 3's run (a)")
+    check(d.n_matvec == 2 * n_iter, f"phase 10 (a): {d.n_matvec} matvecs for {n_iter} iterations")
+    errs = d.iteration_errors()
+    check(len(errs) == min(n_iter, d.trace.trace_len) and errs[-1] == float(sol.err),
+          "phase 10 (a): the last traced error is not the solve's")
+    summary = d.summary()
+    check(set(summary) == SUMMARY_KEYS and set(summary["sketch"]) == SKETCH_SUMMARY_KEYS
+          and set(summary["certificate"]) == CERT_SUMMARY_KEYS, f"phase 10 (a): summary keys {summary}")
+    cert = check_certificate("phase 10 (a)", sol.certificate, sampled=True)
+    observed = abs(value - value_dense)
+    log("phase 10 (a) " + json.dumps(dict(
+        n=n, s=s, value=value, n_iter=n_iter, status=sol.status_label, wall_s=wall, peak_bytes=peak,
+        launches=launches, n_matvec=d.n_matvec, first_errors=errs[:3].tolist(), last_errors=errs[-3:].tolist(),
+        sketch=summary["sketch"], certificate=cert, value_dense=value_dense, observed_error=observed,
+        bound_over_observed=cert["error_bound"] / observed)))
+    if cert["error_bound"] < observed:
+        log(f"phase 10 (a): finding: the error bound {cert['error_bound']!r} is below the observed error "
+            f"{observed!r} against the fused dense objective")
+    del sol, d
+    # walls in turns (untraced, traced, traced and certified, then the
+    # other way round, ...), each synced; then each variant's device
+    # kernels and device time a solve (profiler)
+    variants = {"untraced": {}, "traced": dict(trace=True), "certified": dict(trace=True, certify=True)}
+    walls = {k: [] for k in variants}
+    peaks = {k: [] for k in variants}
+    for label in ("untraced", "traced", "certified", "certified", "traced", "untraced", "untraced", "traced",
+                  "certified"):
+        extra = variants[label]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = rt.solve(ot, method="spar_sink_mf", **opts, **extra)
+        float(out.value)
+        torch.cuda.synchronize()
+        walls[label].append(time.perf_counter() - t0)
+        peaks[label].append(torch.cuda.max_memory_allocated() - base)
+        del out
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    kernels = {k: device_kernels(lambda: float(rt.solve(ot, method="spar_sink_mf", **opts, **extra).value))
+               for k, extra in variants.items()}
+    # the certify step alone, on the same sketch and scalings (its fields
+    # bitwise the certified solve's)
+    sk, c_e = rt.build_mf_sketch(ot, torch.Generator(device=device).manual_seed(0), s)
+    res = solvers._coo_scaling_loop(ot, sk, 1e-6, max_iter)
+    v = solvers._coo_value(ot, sk, c_e, res)
+    cert_walls, cert_peaks = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        alone = solvers._sparse_cert(ot, sk, res, v, c_e, log_domain=False)
+        float(alone.error_bound)
+        torch.cuda.synchronize()
+        cert_walls.append(time.perf_counter() - t0)
+        cert_peaks.append(torch.cuda.max_memory_allocated() - base)
+    check({f: float(getattr(alone, f)) for f in alone._fields} == cert,
+          "phase 10 (a): the certify step alone differs from the certified solve's certificate")
+    cert_dev_ms = device_ms(lambda: solvers._sparse_cert(ot, sk, res, v, c_e, log_domain=False), reps=3)
+    log("phase 10 (a) in turns " + json.dumps(dict(
+        walls_s=walls, median_s=med, trace_overhead_s=med["traced"] - med["untraced"],
+        certify_overhead_s=med["certified"] - med["traced"], peaks_bytes=peaks,
+        device_kernels_and_us=kernels,
+        added_kernels_an_iteration=(kernels["traced"][0] - kernels["untraced"][0]) / n_iter,
+        certify_step_walls_s=cert_walls, certify_step_median_s=statistics.median(cert_walls),
+        certify_step_peak_bytes=max(cert_peaks), certify_step_device_ms=cert_dev_ms, cap=sk.cap)))
+    del sk, c_e, res, alone
+    torch.cuda.empty_cache()
+    # (2) run (b) certified, then warm-started from its own potentials
+    sol_b, value_b, wall_b, launches = counted_solve(total, ot, "spar_sink_mf", stabilize=True, certify=True,
+                                                     **opts)
+    check(launches == {"gathered_cost": 1}, f"phase 10 (b): the certified solve launched {launches}")
+    check((value_b, int(sol_b.n_iter)) == runs["b"], "phase 10 (b): the certified solve is not phase 3's run (b)")
+    cert_b = check_certificate("phase 10 (b)", sol_b.certificate, sampled=True)
+    warm, value_w, wall_w, launches = counted_solve(
+        total, ot, "spar_sink_mf", stabilize=True, certify=True, init=sol_b.potentials, **dict(opts, tol=1e-7))
+    check(launches == {"gathered_cost": 1}, f"phase 10 (b) warm: the solve launched {launches}")
+    check(math.isfinite(value_w), "phase 10 (b) warm: value not finite")
+    cert_w = check_certificate("phase 10 (b) warm", warm.certificate, sampled=True)
+    log("phase 10 (b) " + json.dumps(dict(
+        cold=dict(value=value_b, n_iter=int(sol_b.n_iter), status=sol_b.status_label, wall_s=wall_b,
+                  certificate=cert_b, observed_error=abs(value_b - value_dense)),
+        warm=dict(tol=1e-7, value=value_w, n_iter=int(warm.n_iter), status=warm.status_label, wall_s=wall_w,
+                  certificate=cert_w, observed_error=abs(value_w - value_dense)))))
+    del sol_b, warm, ot
+    torch.cuda.empty_cache()
+
+
+def traced_block_ell(total: dict, n: int, device, ot_result, max_iter: int = 1000) -> None:
+    """Phase 10 (3): phase 6's OT solve traced and certified."""
+    import repro_torch as rt
+    from repro_torch.core.sinkhorn import CHECK_EVERY
+
+    ot, _ = block_ell_problems(n, device)
+    sol, value, wall, launches = counted_solve(total, ot, "spar_sink_block_ell", seed=0, s=16 * rt.s0(n),
+                                               tol=1e-6, max_iter=max_iter, trace=True, certify=True)
+    n_iter = int(sol.n_iter)
+    executed = min(max_iter, CHECK_EVERY * math.ceil(n_iter / CHECK_EVERY))
+    check((value, n_iter) == tuple(ot_result), f"phase 10 block-ELL: ({value!r}, {n_iter}) is not phase 6's "
+          f"{ot_result}")
+    check(launches == {"block_ell_matvec": executed, "block_ell_rmatvec": executed},
+          f"phase 10 block-ELL: launches {launches}, not one of each product for each of {executed} iterations")
+    check(sol.diagnostics.n_matvec == 2 * n_iter, "phase 10 block-ELL: matvec count")
+    cert = check_certificate("phase 10 block-ELL", sol.certificate, sampled=False)
+    log("phase 10 block-ELL " + json.dumps(dict(n=n, value=value, n_iter=n_iter, executed=executed, wall_s=wall,
+                                                launches=launches, certificate=cert)))
+
+
+def every_method_certified(total: dict, n: int, device, v_log: float) -> None:
+    """Phase 10 (4): every method on phase 4's OT problem, certified."""
+    import torch
+
+    import repro_torch as rt
+    from repro_torch.core.api.registry import method_accepts
+    from repro_torch.data.pointclouds import make_measures
+
+    a, b, x = make_measures("C1", n, 5, seed=1)
+    problem = rt.OTProblem(rt.PointCloudGeometry(x, device=device), a, b, 0.1)
+    s = 16 * rt.s0(n)
+    for method, extra in EVERY_METHOD:
+        opts = dict(extra, certify=True)
+        for option, value in (("s", s), ("trace", True), ("tol", 1e-6), ("max_iter", 1000), ("n_updates", 2 * n)):
+            if method_accepts(method, option):
+                opts[option] = value
+        sol, value, wall, launches = counted_solve(total, problem, method, **opts)
+        label = f"phase 10 every method {method}{' (stabilize)' if extra.get('stabilize') else ''}"
+        cert = check_certificate(label, sol.certificate, sampled=method not in UNSAMPLED)
+        observed = abs(value - v_log)
+        d = sol.diagnostics
+        log(label + " " + json.dumps(dict(
+            value=value, rel_err=observed / abs(v_log), observed_error=observed, error_bound=cert["error_bound"],
+            bound_covers=cert["error_bound"] >= observed, gap=cert["gap"], coverage=cert["coverage_deficit"],
+            ci_width=cert["ci_high"] - cert["ci_low"], ess=cert["ess"], n_iter=int(sol.n_iter),
+            status=sol.status_label, n_matvec=d.n_matvec, wall_s=wall, launches=launches)))
+        del sol, d
+    del problem
+    torch.cuda.empty_cache()
+
+
+def _tensors(out) -> list:
+    """The tensors of a (nested) tuple result, in order."""
+    import torch
+
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for x in out for t in _tensors(x)] if isinstance(out, tuple) else []
+
+
+def twice(label: str, fn):
+    """``fn()`` twice, synced: the first result and both walls; the two
+    results must be bitwise equal."""
+    import torch
+
+    outs, walls = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    first, second = _tensors(outs[0]), _tensors(outs[1])
+    check(len(first) == len(second) > 0 and all(torch.equal(p, q) for p, q in zip(first, second)),
+          f"{label}: two runs differ")
+    return outs[0], walls
+
+
+def composites(device) -> None:
+    """Phase 10 (5): the divergence, barycenters and proximal OT, each run
+    twice (bitwise equal)."""
+    import torch
+
+    import repro_torch as rt
+    from repro_torch.core import proximal
+    from repro_torch.core.geometry import normalize_cost, squared_euclidean_cost
+    from repro_torch.data.pointclouds import make_measures
+
+    n = 4096
+    a, _, x = (torch.as_tensor(t, device=device) for t in make_measures("C1", n, 5, seed=2))
+    _, b, y = (torch.as_tensor(t, device=device) for t in make_measures("C1", n, 5, seed=3))
+    div = {}
+    for method, extra in (("dense", {}), ("spar_sink_coo", dict(seed=0, s=16 * rt.s0(n)))):
+        (value, status), walls = twice(f"phase 10 divergence {method}", lambda: rt.sinkhorn_divergence(
+            x, y, a, b, 0.1, method=method, with_status=True, **extra))
+        div[method] = float(value)
+        check(math.isfinite(div[method]), f"phase 10 divergence {method}: not finite")
+        log("phase 10 divergence " + json.dumps(dict(method=method, n=n, eps=0.1, value=div[method],
+                                                     status=int(status), walls_s=walls)))
+    log(f"phase 10 divergence: spar_sink_coo against dense, relative difference "
+        f"{abs(div['spar_sink_coo'] - div['dense']) / abs(div['dense'])!r}")
+    del a, b, x, y
+    # three blobs on a 64 x 64 grid, eps = 0.01 on the squared distances
+    pts = rt.grid_support_2d(64, 64, dtype=torch.float64, device=device)
+    geom = rt.Geometry(squared_euclidean_cost(pts, pts))
+    centers = torch.tensor([[0.25, 0.3], [0.7, 0.35], [0.5, 0.75]], dtype=torch.float64, device=device)
+    bs = torch.exp(-((pts[None, :, :] - centers[:, None, :]) ** 2).sum(-1) / (2 * 0.08 ** 2)) + 1e-6
+    bs = bs / bs.sum(dim=1, keepdim=True)
+    w = torch.full((3,), 1.0 / 3, dtype=torch.float64, device=device)
+    qs = {}
+    for method, extra in (("ibp", {}), ("spar_ibp", dict(seed=0, s=16 * rt.s0(4096)))):
+        res, walls = twice(f"phase 10 barycenter {method}", lambda: rt.solve_barycenter(
+            geom, bs, w, 0.01, method=method, tol=1e-6, max_iter=3000, **extra))
+        qs[method] = res.q
+        check(bool(torch.isfinite(res.q).all()) and res.q.shape == (pts.shape[0],), f"phase 10 barycenter {method}")
+        log("phase 10 barycenter " + json.dumps(dict(method=method, grid="64x64", measures=3, eps=0.01,
+                                                     n_iter=int(res.n_iter), status=int(res.status),
+                                                     err=float(res.err), mass=float(res.q.sum()), walls_s=walls)))
+    log(f"phase 10 barycenter: L1 distance between the ibp and spar_ibp barycentres "
+        f"{float(torch.abs(qs['ibp'] - qs['spar_ibp']).sum())!r}")
+    del geom, bs, qs
+    m = 2048
+    a, b, x = (torch.as_tensor(t, device=device) for t in make_measures("C1", m, 5, seed=4))
+    C, _ = normalize_cost(squared_euclidean_cost(x, x))
+    (res, _), walls = twice("phase 10 prox_sinkhorn", lambda: proximal.prox_sinkhorn(C, a, b, 0.05, n_outer=10))
+    log("phase 10 prox_sinkhorn " + json.dumps(dict(n=m, cost=float(res.cost), marginal_err=float(res.marginal_err),
+                                                    walls_s=walls)))
+    check(math.isfinite(float(res.cost)), "phase 10 prox_sinkhorn: cost not finite")
+    dense_cost = float(res.cost)
+    res, walls = twice("phase 10 prox_spar_sink", lambda: proximal.prox_spar_sink(
+        C, a, b, 0.05, 16 * rt.s0(m), seed=0, n_outer=10))
+    log("phase 10 prox_spar_sink " + json.dumps(dict(n=m, cost=float(res.cost), marginal_err=float(res.marginal_err),
+                                                     relative_to_dense=(float(res.cost) - dense_cost) / dense_cost,
+                                                     walls_s=walls)))
+    check(math.isfinite(float(res.cost)), "phase 10 prox_spar_sink: cost not finite")
+    torch.cuda.empty_cache()
+
+
+def run_observability_phase(device, runs: dict, scalings_a, value_dense: float, v_log: float, ot_be) -> dict:
+    """Phase 10 (see the module docstring); returns its solves' launches."""
+    t0 = time.perf_counter()
+    total: dict[str, int] = {}
+    traced_main_path(total, 2 ** 17, device, runs, scalings_a, value_dense)
+    t1 = time.perf_counter()
+    traced_block_ell(total, 8192, device, ot_be)
+    every_method_certified(total, 8192, device, v_log)
+    t2 = time.perf_counter()
+    composites(device)
+    log(f"phase 10: main path {t1 - t0!r} s, block-ELL and every method {t2 - t1!r} s, composites "
+        f"{time.perf_counter() - t2!r} s; launches of its solves {json.dumps(total)}")
+    return total
+
+
+# --------------------------------------------------------------------------
 # Phase 7: the RecurrentGemma-2B serving slice at full width
 # --------------------------------------------------------------------------
 
@@ -3046,7 +3389,8 @@ def main() -> int:
     n = 2 ** 17
     entries = check_gathered_kernel(n, default_cap(4 * s0(n)), 5, device)
     online_entries = check_online_kernels(n, device, clock)
-    launches, value_a = run_main_path(n, device)
+    launches, main_runs, scalings_a = run_main_path(n, device)
+    value_a = main_runs["a"][0]
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
     v_log = check_accuracy(8192, device)
@@ -3071,6 +3415,13 @@ def main() -> int:
     entries += block_ell_entries
     check_block_ell_accuracy(8192, device, v_log, s_be, ot_be)
     log(f"block-ELL phase {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    phase10 = run_observability_phase(device, main_runs, scalings_a, value_dense, v_log, ot_be)
+    for entry in entries:
+        entry["launches"] += phase10.get(entry["name"], 0)
+    del scalings_a
+    torch.cuda.empty_cache()
+    log(f"phase 10 {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
     entries.append(check_lru_scan_kernel(device))
     entries[-1]["launches"] = run_serving_slice(device, profile_run)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["as_tensor", "resolve_device"]
+__all__ = ["as_tensor", "make_generator", "resolve_device"]
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -32,3 +32,15 @@ def as_tensor(data, device: str | torch.device | None = None) -> torch.Tensor:
     if isinstance(data, torch.Tensor):
         return data if device is None else data.to(resolve_device(device))
     return torch.as_tensor(np.asarray(data), device=resolve_device(device))
+
+
+def make_generator(device: torch.device, generator=None, seed: int | None = None) -> torch.Generator:
+    """A random source on ``device``: ``generator`` as given, or a new one
+    seeded with ``seed``; exactly one of them."""
+    if (generator is None) == (seed is None):
+        raise TypeError("pass exactly one of generator= (a torch.Generator) or seed=")
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(int(seed))
+    if generator.device.type != device.type:
+        raise ValueError(f"generator is on {generator.device}, the data on {device}")
+    return generator

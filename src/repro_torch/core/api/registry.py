@@ -13,7 +13,7 @@ from typing import Callable
 from repro_torch.core.api.problems import OTProblem
 from repro_torch.core.api.solution import Solution
 
-__all__ = ["available_methods", "get_solver", "register_solver", "solve"]
+__all__ = ["available_methods", "get_solver", "method_accepts", "register_solver", "solve"]
 
 SolverFn = Callable[..., Solution]
 
@@ -56,13 +56,24 @@ def _option_names(fn: SolverFn) -> list[str]:
     return [n for n in inspect.signature(fn).parameters if n != "problem"]
 
 
+def method_accepts(method: str, option: str) -> bool:
+    """Whether a registered method's solver takes ``option`` as a keyword."""
+    params = inspect.signature(get_solver(method)).parameters
+    return any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()) or option in params
+
+
 def solve(problem: OTProblem, method: str = "dense", **opts) -> Solution:
     """Solve an `OTProblem`/`UOTProblem` with a registered method.
 
-    Common options: ``tol``, ``max_iter``. The sketching methods
-    (``spar_sink_mf``, ``spar_sink_block_ell``) also take ``s`` (expected
-    sketch size) and ``generator=`` (a `torch.Generator` on the problem's
-    device) or ``seed=``; see `repro_torch.core.api.solvers`.
+    Common options: ``tol``, ``max_iter``, ``certify`` (all eleven
+    methods) and ``trace`` (all but ``greenkhorn``, ``nys_sink`` and
+    ``screenkhorn_lite``); ``log``, ``spar_sink_log`` and
+    ``spar_sink_mf(stabilize=True)`` take ``init=(f0, g0)``. The sketching
+    methods (``spar_sink_coo``, ``spar_sink_log``, ``spar_sink_mf``,
+    ``spar_sink_block_ell``, ``spar_sink_dense``, ``rand_sink``) also take
+    ``s`` (expected sketch size), and they and ``nys_sink`` take
+    ``generator=`` (a `torch.Generator` on the problem's device) or
+    ``seed=``; see `repro_torch.core.api.solvers`.
     """
     problem.check_valid()
     fn = get_solver(method)

@@ -9,8 +9,11 @@
                     ``plan(dense=True)`` is the only way to an n x m array;
                     the dense solvers build their n x m plan on first access
 
-``diagnostics`` and ``certificate`` are always ``None`` in the port so far:
-the solvers here take no ``trace=``/``certify=`` option yet.
+* ``.diagnostics``  the `repro_torch.obs.Diagnostics` of a ``trace=True``
+                    or ``certify=True`` solve (iteration trace, sketch
+                    stats, certificate); ``None`` otherwise
+* ``.certificate``  the `repro_torch.obs.Certificate` of a ``certify=True``
+                    solve; ``None`` otherwise
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import torch
 
 from repro_torch.core.sinkhorn import STATUS_CONVERGED, STATUS_LABELS, SinkhornResult
 from repro_torch.core.sparsify import segment_sum, sorted_offsets
+from repro_torch.obs.certify import Certificate
+from repro_torch.obs.trace import Diagnostics, SketchStats
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.core.api.problems import OTProblem
@@ -87,11 +92,12 @@ class Solution:
     #: the sketch draw exceeded its capacity and its tail was dropped (the
     #: estimate is then biased low: re-solve with a larger ``cap``)
     overflowed: torch.Tensor | None = None
+    #: sketch-quality stats of a sketching solver's ``trace=True`` solve
+    sketch_stats: SketchStats | None = None
+    #: the quality certificate of a ``certify=True`` solve
+    certificate: Certificate | None = None
     _plan_thunk: Callable[[], "SparsePlan | torch.Tensor"] | None = field(default=None, repr=False)
     _plan_cache: "SparsePlan | torch.Tensor | None" = field(default=None, repr=False, init=False)
-
-    diagnostics = None
-    certificate = None
 
     @property
     def scalings(self) -> tuple[torch.Tensor, torch.Tensor]:
@@ -132,6 +138,19 @@ class Solution:
         """Readable status (reads the device scalar on the host)."""
         s = self.result.status
         return None if s is None else STATUS_LABELS[int(s)]
+
+    @property
+    def diagnostics(self) -> Diagnostics | None:
+        """The per-solve observability record: the iteration trace, the
+        sketch stats and the certificate; ``None`` unless the solve ran with
+        ``trace=True`` or ``certify=True``."""
+        tr = self.result.trace
+        if tr is None and self.sketch_stats is None and self.certificate is None:
+            return None
+        return Diagnostics(
+            trace=tr, n_iter=self.result.n_iter, status=self.result.status,
+            sketch=self.sketch_stats, certificate=self.certificate,
+        )
 
     def plan(self, dense: bool = False) -> "SparsePlan | torch.Tensor":
         """Lazy transport plan: a `SparsePlan` for sketch solves

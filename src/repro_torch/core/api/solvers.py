@@ -45,11 +45,12 @@ import math
 
 import torch
 
+from repro_torch._device import make_generator
 from repro_torch.core import sparsify
 from repro_torch.core.api.geometry import PointCloudGeometry
 from repro_torch.core.api.problems import OTProblem, UOTProblem
 from repro_torch.core.api.registry import register_solver
-from repro_torch.core.api.solution import Solution, SparsePlan
+from repro_torch.core.api.solution import Solution, SparsePlan, _potentials_from_scalings
 from repro_torch.core.baselines import greenkhorn, nys_sink, screenkhorn_lite
 from repro_torch.core.sinkhorn import (
     _masked_log,
@@ -63,16 +64,16 @@ from repro_torch.core.sinkhorn import (
     sinkhorn_uot_log,
 )
 from repro_torch.core.spar_sink import (
-    coo_objective_ot,
     coo_objective_ot_entries,
     coo_objective_ot_log_entries,
-    coo_objective_uot,
     coo_objective_uot_entries,
     coo_objective_uot_log_entries,
     default_cap,
     default_max_blocks,
     log_plan_entries,
 )
+from repro_torch.obs.certify import dense_certificate, importance_ess, sparse_certificate
+from repro_torch.obs.trace import sketch_diagnostics
 
 __all__ = [
     "DEFAULT_TOL",
@@ -90,15 +91,8 @@ DEFAULT_TOL = 1e-6
 
 
 def _generator(problem: OTProblem, generator=None, seed: int | None = None) -> torch.Generator:
-    """The sketch's random source: ``generator`` as given, or a new one on
-    the problem's device seeded with ``seed``; exactly one of them."""
-    if (generator is None) == (seed is None):
-        raise TypeError("pass exactly one of generator= (a torch.Generator) or seed=")
-    if generator is None:
-        generator = torch.Generator(device=problem.device).manual_seed(int(seed))
-    if generator.device.type != problem.device.type:
-        raise ValueError(f"generator is on {generator.device}, the problem on {problem.device}")
-    return generator
+    """The sketch's random source on the problem's device (`make_generator`)."""
+    return make_generator(problem.device, generator, seed)
 
 
 # --------------------------------------------------------------------------
@@ -269,7 +263,7 @@ def build_mf_log_sketch(
 # --------------------------------------------------------------------------
 
 
-def _coo_scaling_loop(problem: OTProblem, sk, tol: float, max_iter: int):
+def _coo_scaling_loop(problem: OTProblem, sk, tol: float, max_iter: int, trace: bool | int = False):
     """Scaling-domain Sinkhorn on the sketch: sorted segment sums, with the
     segment offsets computed once for the whole loop."""
     row_off, col_layout = sparsify.row_offsets(sk), sparsify.col_layout(sk)
@@ -277,20 +271,22 @@ def _coo_scaling_loop(problem: OTProblem, sk, tol: float, max_iter: int):
         lambda v: sparsify.coo_matvec(sk, v, row_off),
         lambda u: sparsify.coo_rmatvec(sk, u, col_layout),
         problem.a, problem.b, problem.fe,
-        tol=tol, max_iter=max_iter,
+        tol=tol, max_iter=max_iter, trace=trace,
     )
 
 
-def _sparse_log_loop(problem: OTProblem, sk, tol: float, max_iter: int):
+def _sparse_log_loop(problem: OTProblem, sk, tol: float, max_iter: int, trace: bool | int = False,
+                     init: tuple[torch.Tensor, torch.Tensor] | None = None):
     """Log-domain Sinkhorn on a log-space sketch: sorted segment-logsumexps
-    driven by `generic_sparse_log_loop`."""
+    driven by `generic_sparse_log_loop`. (The reference runs its batched
+    loop at B = 1 here; the two agree at rounding level.)"""
     eps = float(problem.eps)
     row_off, col_layout = sparsify.row_offsets(sk), sparsify.col_layout(sk)
     return generic_sparse_log_loop(
         lambda g: sparsify.coo_lse_row(sk, g / eps, row_off),
         lambda f: sparsify.coo_lse_col(sk, f / eps, col_layout),
         _masked_log(problem.a), _masked_log(problem.b), eps, problem.fe,
-        tol=tol, max_iter=max_iter,
+        tol=tol, max_iter=max_iter, trace=trace, init=init,
     )
 
 
@@ -316,33 +312,108 @@ def _coo_log_value(problem: OTProblem, sk, c_e, res) -> torch.Tensor:
     return coo_objective_ot_log_entries(sk, c_e, res, problem.eps)
 
 
-def _coo_cost_value(problem: OTProblem, sk, res) -> torch.Tensor:
-    """O(cap) entropic objective reading the kept entries of the dense cost."""
-    if _is_uot(problem):
-        return coo_objective_uot(
-            sk, problem.geom.cost, res, problem.a, problem.b, float(problem.lam), problem.eps
-        )
-    return coo_objective_ot(sk, problem.geom.cost, res, problem.eps)
+# --------------------------------------------------------------------------
+# Sketch statistics and certificates (only behind trace= / certify=)
+# --------------------------------------------------------------------------
 
 
-def _coo_solution(method: str, problem: OTProblem, sk, res, value) -> Solution:
-    """The `Solution` of a scaling-domain sketch solve; its plan is the
+def _sketch_stats(sk, trace):
+    """The sketch's `SketchStats`, computed only for a traced solve."""
+    return sketch_diagnostics(sk) if trace else None
+
+
+def _problem_lam(problem: OTProblem) -> float:
+    """The marginal penalty as a float; ``inf`` selects the balanced dual."""
+    return float(problem.lam) if isinstance(problem, UOTProblem) else math.inf
+
+
+def _kernel_cost(Kt: torch.Tensor, eps: float) -> torch.Tensor:
+    """The effective cost ``-eps log Kt`` of a (sketched) dense kernel, with
+    zero or negative entries at ``+inf`` (outside the support)."""
+    pos = Kt > 0
+    return torch.where(pos, -eps * torch.log(torch.where(pos, Kt, 1.0)), math.inf)
+
+
+def _sparse_cert(problem: OTProblem, sk, res, value, c_e, *, log_domain: bool):
+    """Certificate of a sketch solve in O(cap + n): the dense-anchored
+    duality gap through the Horvitz-Thompson kernel entries ``k_e``, and the
+    delta-method CI from the recovered inclusion probabilities (``p*_e =
+    K_e / vals_e``); ``c_e`` are the raw gathered costs. The marginals run
+    over the sketch's sorted rows and its own column layout."""
+    eps = float(problem.eps)
+    if log_domain:
+        t_e = log_plan_entries(sk, res, eps)
+        f, g = res.u, res.v
+        fh = torch.where(torch.isfinite(f), f, 0.0)
+        gh = torch.where(torch.isfinite(g), g, 0.0)
+        # the dual's kernel entries at the masked potentials (t_e if none died)
+        logk = sk.logvals + (fh[sk.rows] + gh[sk.cols]) / eps
+        k_e = torch.where(torch.isneginf(logk), 0.0, torch.exp(logk))
+        # logvals = -C_e/eps - log p*_e  =>  log p*_e = -C_e/eps - logvals
+        logp = torch.clamp_max(-c_e / eps - sk.logvals, 0.0)
+        p_e = torch.where(torch.isneginf(sk.logvals), 1.0, torch.exp(logp))
+        ess = importance_ess(sk.logvals, log_space=True)
+    else:
+        vals = sk.vals
+        alive = vals > 0
+        t_e = res.u[sk.rows] * vals * res.v[sk.cols]
+        f, g = _potentials_from_scalings(res.u, res.v, eps)
+        uh = torch.where(res.u > 0, res.u, 1.0)
+        vh = torch.where(res.v > 0, res.v, 1.0)
+        k_e = uh[sk.rows] * vals * vh[sk.cols]
+        # vals = K_e / p*_e  =>  p*_e = exp(-C_e/eps) / vals
+        K_e = torch.where(torch.isfinite(c_e), torch.exp(-c_e / eps), 0.0)
+        p_e = torch.where(alive, torch.clamp(K_e / torch.where(alive, vals, 1.0), 0.0, 1.0), 1.0)
+        ess = importance_ess(vals)
+    n, m = problem.shape
+    return sparse_certificate(
+        t_e=t_e, c_e=c_e, rows=sk.rows, cols=sk.cols, n=n, m=m, a=problem.a, b=problem.b,
+        f=f, g=g, eps=eps, lam=_problem_lam(problem), value=value, k_e=k_e, p_e=p_e, ess=ess,
+        col_layout=sparsify.col_layout(sk),
+    )
+
+
+def _plan_cert(problem: OTProblem, T: torch.Tensor, value, f, g, cost: torch.Tensor | None = None):
+    """`dense_certificate` of a dense plan ``T`` on the problem's cost, or on
+    ``cost`` for a solver whose kernel is itself sketched or factored."""
+    return dense_certificate(
+        plan=T, cost=problem.geom.cost if cost is None else cost, a=problem.a, b=problem.b,
+        f=f, g=g, eps=float(problem.eps), lam=_problem_lam(problem), value=value,
+    )
+
+
+# --------------------------------------------------------------------------
+# Solutions
+# --------------------------------------------------------------------------
+
+
+def _scaling_sketch_solution(method: str, problem: OTProblem, sk, c_e, tol: float, max_iter: int,
+                             trace: bool | int = False, certify: bool = False) -> Solution:
+    """The scaling-domain iteration on a COO sketch, its objective from the
+    gathered costs ``c_e``, and its `Solution`, whose plan is the
     `SparsePlan` ``u_i K~_e v_j`` on the kept entries."""
+    res = _coo_scaling_loop(problem, sk, tol, max_iter, trace)
+    value = _coo_value(problem, sk, c_e, res)
+    cert = _sparse_cert(problem, sk, res, value, c_e, log_domain=False) if certify else None
 
     def plan() -> SparsePlan:
         return SparsePlan(sk.rows, sk.cols, res.u[sk.rows] * sk.vals * res.v[sk.cols], sk.nnz, sk.n, sk.m)
 
     return Solution(
         method=method, problem=problem, value=value, result=res, domain="scaling",
-        nnz=sk.nnz, overflowed=sk.overflowed, _plan_thunk=plan,
+        nnz=sk.nnz, overflowed=sk.overflowed, sketch_stats=_sketch_stats(sk, trace), certificate=cert,
+        _plan_thunk=plan,
     )
 
 
-def _sparse_log_solution(method: str, problem: OTProblem, sk, c_e, tol: float, max_iter: int) -> Solution:
+def _sparse_log_solution(method: str, problem: OTProblem, sk, c_e, tol: float, max_iter: int,
+                         trace: bool | int = False, certify: bool = False,
+                         init: tuple[torch.Tensor, torch.Tensor] | None = None) -> Solution:
     """The log-domain iteration on a log-space sketch, its objective from
     the gathered costs ``c_e``, and its ``domain="log"`` `Solution`."""
-    res = _sparse_log_loop(problem, sk, tol, max_iter)
+    res = _sparse_log_loop(problem, sk, tol, max_iter, trace, init)
     value = _coo_log_value(problem, sk, c_e, res)
+    cert = _sparse_cert(problem, sk, res, value, c_e, log_domain=True) if certify else None
     eps = float(problem.eps)
 
     def plan() -> SparsePlan:
@@ -350,18 +421,28 @@ def _sparse_log_solution(method: str, problem: OTProblem, sk, c_e, tol: float, m
 
     return Solution(
         method=method, problem=problem, value=value, result=res, domain="log",
-        nnz=sk.nnz, overflowed=sk.overflowed, _plan_thunk=plan,
+        nnz=sk.nnz, overflowed=sk.overflowed, sketch_stats=_sketch_stats(sk, trace), certificate=cert,
+        _plan_thunk=plan,
     )
 
 
-def _dense_solution(problem: OTProblem, method: str, res, Kt: torch.Tensor, *, nnz=None) -> Solution:
+def _dense_solution(problem: OTProblem, method: str, res, Kt: torch.Tensor, *, nnz=None, certify: bool = False,
+                    cost: torch.Tensor | None = None) -> Solution:
     """The `Solution` whose plan is the dense ``diag(u) Kt diag(v)``. The plan
     is rebuilt by the thunk, not kept: a `Solution` pins only ``Kt`` (for
-    the dense solvers the kernel that the Geometry's cache holds anyway)."""
-    value = problem.objective(plan_from_scalings(res.u, Kt, res.v))
+    the dense solvers the kernel that the Geometry's cache holds anyway).
+    ``certify=True`` certifies the transient plan (against ``cost`` where
+    the kernel is sketched)."""
+    T = plan_from_scalings(res.u, Kt, res.v)
+    value = problem.objective(T)
+    cert = None
+    if certify:
+        f, g = _potentials_from_scalings(res.u, res.v, float(problem.eps))
+        cert = _plan_cert(problem, T, value, f, g, cost=cost)
+    del T
     return Solution(
         method=method, problem=problem, value=value, result=res, domain="scaling", nnz=nnz,
-        _plan_thunk=lambda: plan_from_scalings(res.u, Kt, res.v),
+        certificate=cert, _plan_thunk=lambda: plan_from_scalings(res.u, Kt, res.v),
     )
 
 
@@ -371,32 +452,53 @@ def _dense_solution(problem: OTProblem, method: str, res, Kt: torch.Tensor, *, n
 
 
 @register_solver("dense")
-def _solve_dense(problem: OTProblem, *, tol: float = DEFAULT_TOL, max_iter: int = 1000) -> Solution:
+def _solve_dense(
+    problem: OTProblem,
+    *,
+    tol: float = DEFAULT_TOL,
+    max_iter: int = 1000,
+    trace: bool | int = False,
+    certify: bool = False,
+) -> Solution:
     """Scaling-domain Sinkhorn on the dense Gibbs kernel (Alg. 1 / Alg. 2)."""
     K = problem.kernel()
     if problem.fe == 1.0:
-        res = sinkhorn(K, problem.a, problem.b, tol=tol, max_iter=max_iter)
+        res = sinkhorn(K, problem.a, problem.b, tol=tol, max_iter=max_iter, trace=trace)
     else:
         res = sinkhorn_uot(
-            K, problem.a, problem.b, problem.lam, problem.eps, tol=tol, max_iter=max_iter
+            K, problem.a, problem.b, problem.lam, problem.eps, tol=tol, max_iter=max_iter, trace=trace
         )
-    return _dense_solution(problem, "dense", res, K)
+    return _dense_solution(problem, "dense", res, K, certify=certify)
 
 
 @register_solver("log")
-def _solve_log(problem: OTProblem, *, tol: float = DEFAULT_TOL, max_iter: int = 1000) -> Solution:
-    """Log-domain Sinkhorn on dual potentials (survives ``eps`` down to 1e-3)."""
+def _solve_log(
+    problem: OTProblem,
+    *,
+    tol: float = DEFAULT_TOL,
+    max_iter: int = 1000,
+    trace: bool | int = False,
+    certify: bool = False,
+    init: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> Solution:
+    """Log-domain Sinkhorn on dual potentials (survives ``eps`` down to 1e-3).
+    ``init=(f0, g0)`` warm-starts the potentials (re-tightening at the
+    original ``eps`` from an eps-bumped solve)."""
     logK = problem.log_kernel()
     eps = float(problem.eps)
     if problem.fe == 1.0:
-        res = sinkhorn_log(logK, problem.a, problem.b, eps, tol=tol, max_iter=max_iter)
+        res = sinkhorn_log(logK, problem.a, problem.b, eps, tol=tol, max_iter=max_iter, trace=trace, init=init)
     else:
         res = sinkhorn_uot_log(
-            logK, problem.a, problem.b, float(problem.lam), eps, tol=tol, max_iter=max_iter
+            logK, problem.a, problem.b, float(problem.lam), eps, tol=tol, max_iter=max_iter,
+            trace=trace, init=init,
         )
-    value = problem.objective(plan_from_potentials(res.u, logK, res.v, eps))
+    T = plan_from_potentials(res.u, logK, res.v, eps)
+    value = problem.objective(T)
+    cert = _plan_cert(problem, T, value, res.u, res.v) if certify else None
+    del T
     return Solution(
-        method="log", problem=problem, value=value, result=res, domain="log",
+        method="log", problem=problem, value=value, result=res, domain="log", certificate=cert,
         _plan_thunk=lambda: plan_from_potentials(res.u, logK, res.v, eps),
     )
 
@@ -418,6 +520,8 @@ def _solve_spar_sink_coo(
     probs: torch.Tensor | None = None,
     tol: float = DEFAULT_TOL,
     max_iter: int = 1000,
+    trace: bool | int = False,
+    certify: bool = False,
 ) -> Solution:
     """Spar-Sink on the padded-COO sketch (`build_coo_sketch`): O(s)
     iterations of sorted segment sums, an O(cap) plan. Scaling domain: at
@@ -426,13 +530,15 @@ def _solve_spar_sink_coo(
     makes ``a / K~ v`` overflow; use ``spar_sink_log`` there."""
     sk = build_coo_sketch(problem, _generator(problem, generator, seed), s, cap=cap, probs=probs,
                           shrinkage=shrinkage)
-    return _spar_sink_coo_on(problem, sk, tol, max_iter)
+    return _spar_sink_coo_on(problem, sk, tol, max_iter, trace=trace, certify=certify)
 
 
-def _spar_sink_coo_on(problem: OTProblem, sk, tol: float, max_iter: int, method: str = "spar_sink_coo") -> Solution:
-    """Everything of ``spar_sink_coo`` after the sketch."""
-    res = _coo_scaling_loop(problem, sk, tol, max_iter)
-    return _coo_solution(method, problem, sk, res, _coo_cost_value(problem, sk, res))
+def _spar_sink_coo_on(problem: OTProblem, sk, tol: float, max_iter: int, method: str = "spar_sink_coo", *,
+                      trace: bool | int = False, certify: bool = False) -> Solution:
+    """Everything of ``spar_sink_coo`` after the sketch: the costs read from
+    the dense cost's kept entries."""
+    c_e = problem.geom.cost[sk.rows, sk.cols]
+    return _scaling_sketch_solution(method, problem, sk, c_e, tol, max_iter, trace, certify)
 
 
 @register_solver("spar_sink_log")
@@ -447,6 +553,9 @@ def _solve_spar_sink_log(
     probs: torch.Tensor | None = None,
     tol: float = DEFAULT_TOL,
     max_iter: int = 1000,
+    trace: bool | int = False,
+    certify: bool = False,
+    init: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> Solution:
     """Log-domain Spar-Sink, safe for small ``eps``: ``spar_sink_coo``'s
     sketch (the same support for the same generator state on OT problems)
@@ -454,7 +563,7 @@ def _solve_spar_sink_log(
     segment-logsumexp on potentials. Returns a ``domain="log"`` `Solution`."""
     sk, c_e = build_coo_log_sketch(problem, _generator(problem, generator, seed), s, cap=cap, probs=probs,
                                    shrinkage=shrinkage)
-    return _sparse_log_solution("spar_sink_log", problem, sk, c_e, tol, max_iter)
+    return _sparse_log_solution("spar_sink_log", problem, sk, c_e, tol, max_iter, trace, certify, init)
 
 
 @register_solver("spar_sink_mf")
@@ -470,6 +579,9 @@ def _solve_spar_sink_mf(
     stabilize: bool = False,
     tol: float = DEFAULT_TOL,
     max_iter: int = 1000,
+    trace: bool | int = False,
+    certify: bool = False,
+    init: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> Solution:
     """Matrix-free Spar-Sink: Õ(n) end to end, no (n, m) array anywhere.
 
@@ -483,7 +595,8 @@ def _solve_spar_sink_mf(
     (`build_mf_log_sketch` + segment-logsumexp on potentials): still
     matrix-free, safe for small ``eps`` where the scaling-domain sketch
     underflows ``exp(-C/eps)``. It returns a ``domain="log"`` `Solution`;
-    ``impl`` does not apply to it (it gathers raw costs only).
+    ``impl`` does not apply to it (it gathers raw costs only), and only it
+    takes ``init=(f0, g0)``.
 
     ``shared_variates=True`` is the small-n test mode: it draws the dense
     Bernoulli sketch of ``spar_sink_coo`` (``spar_sink_log`` with
@@ -494,20 +607,21 @@ def _solve_spar_sink_mf(
     float64 cost-only kernel, against the dense cost's entries).
     """
     geom = _mf_geometry(problem)
+    if init is not None and not stabilize:
+        raise ValueError("init= (warm-started potentials) requires the log-domain stabilize=True path")
     gen = _generator(problem, generator, seed)
     if stabilize:
         if shared_variates:
             sk, c_e = build_coo_log_sketch(problem, gen, s, cap=cap)
         else:
             sk, c_e = build_mf_log_sketch(problem, gen, s, cap=cap)
-        return _sparse_log_solution("spar_sink_mf", problem, sk, c_e, tol, max_iter)
+        return _sparse_log_solution("spar_sink_mf", problem, sk, c_e, tol, max_iter, trace, certify, init)
     if shared_variates:
         sk = build_coo_sketch(problem, gen, s, cap=cap)
         c_e = geom.cost_entries(sk.rows, sk.cols)
     else:
         sk, c_e = build_mf_sketch(problem, gen, s, cap=cap, impl=impl)
-    res = _coo_scaling_loop(problem, sk, tol, max_iter)
-    return _coo_solution("spar_sink_mf", problem, sk, res, _coo_value(problem, sk, c_e, res))
+    return _scaling_sketch_solution("spar_sink_mf", problem, sk, c_e, tol, max_iter, trace, certify)
 
 
 @register_solver("rand_sink")
@@ -520,6 +634,8 @@ def _solve_rand_sink(
     cap: int | None = None,
     tol: float = DEFAULT_TOL,
     max_iter: int = 1000,
+    trace: bool | int = False,
+    certify: bool = False,
 ) -> Solution:
     """``spar_sink_coo`` with uniform probabilities (the paper's Rand-Sink),
     given as row/col factors in the geometry's dtype
@@ -527,7 +643,7 @@ def _solve_rand_sink(
     n, m = problem.shape
     probs = sparsify.uniform_prob_factors(n, m, problem.geom.dtype, problem.device)
     sk = build_coo_sketch(problem, _generator(problem, generator, seed), s, cap=cap, probs=probs)
-    return _spar_sink_coo_on(problem, sk, tol, max_iter, method="rand_sink")
+    return _spar_sink_coo_on(problem, sk, tol, max_iter, method="rand_sink", trace=trace, certify=certify)
 
 
 @register_solver("spar_sink_dense")
@@ -541,21 +657,29 @@ def _solve_spar_sink_dense(
     probs: torch.Tensor | None = None,
     tol: float = DEFAULT_TOL,
     max_iter: int = 1000,
+    trace: bool | int = False,
+    certify: bool = False,
 ) -> Solution:
     """The exact eq. (7) sketch held as a dense masked array
     (`sparsify.sparsify_dense`: ``spar_sink_coo``'s draw), iterated by dense
     mat-vecs: the O(n^2) reference of the sketch solvers (scaling domain)."""
     gen = _generator(problem, generator, seed)
     Kt = sparsify.sparsify_dense(gen, problem.kernel(), _resolve_probs(problem, probs, shrinkage), s)
-    return _spar_sink_dense_on(problem, Kt, tol, max_iter)
+    return _spar_sink_dense_on(problem, Kt, tol, max_iter, trace=trace, certify=certify)
 
 
-def _spar_sink_dense_on(problem: OTProblem, Kt: torch.Tensor, tol: float, max_iter: int) -> Solution:
-    """Everything of ``spar_sink_dense`` after the sketch ``Kt``."""
+def _spar_sink_dense_on(problem: OTProblem, Kt: torch.Tensor, tol: float, max_iter: int, *,
+                        trace: bool | int = False, certify: bool = False) -> Solution:
+    """Everything of ``spar_sink_dense`` after the sketch ``Kt``; the
+    certificate is taken on the sketch's effective cost."""
     res = generic_scaling_loop(
-        lambda v: Kt @ v, lambda u: Kt.T @ u, problem.a, problem.b, problem.fe, tol=tol, max_iter=max_iter
+        lambda v: Kt @ v, lambda u: Kt.T @ u, problem.a, problem.b, problem.fe, tol=tol, max_iter=max_iter,
+        trace=trace,
     )
-    return _dense_solution(problem, "spar_sink_dense", res, Kt, nnz=torch.sum(Kt > 0))
+    return _dense_solution(
+        problem, "spar_sink_dense", res, Kt, nnz=torch.sum(Kt > 0), certify=certify,
+        cost=_kernel_cost(Kt, float(problem.eps)) if certify else None,
+    )
 
 
 # --------------------------------------------------------------------------
@@ -563,32 +687,40 @@ def _spar_sink_dense_on(problem: OTProblem, Kt: torch.Tensor, tol: float, max_it
 # --------------------------------------------------------------------------
 
 
-def _block_ell_solution(problem: OTProblem, sk: sparsify.BlockEllKernel, tol: float, max_iter: int) -> Solution:
+def _block_ell_solution(problem: OTProblem, sk: sparsify.BlockEllKernel, tol: float, max_iter: int, *,
+                        trace: bool | int = False, certify: bool = False) -> Solution:
     """Scaling-domain Sinkhorn on a block-ELL sketch, and its `Solution`.
 
     On the card the two mat-vecs launch the two block-ELL kernels, both on
     the row layout's float32 tiles (``K~^T u`` through the sketch's column
     lists), in the loop's float64 or float32; the kernels flag an index out
-    of range, and the flag is read once, after the loop. The objective is
-    taken on the densified sketch, which is then dropped: the `Solution`
-    keeps the tiles and rebuilds the dense plan on first access.
+    of range, and the flag is read once, after the loop. The objective (and
+    the certificate, on the sketch's effective cost) is taken on the
+    densified sketch, which is then dropped: the `Solution` keeps the tiles
+    and rebuilds the dense plan on first access.
     """
     bad = torch.zeros(1, dtype=torch.int32, device=problem.device) if sk.vals.is_cuda else None
     res = generic_scaling_loop(
         lambda v: sparsify.block_ell_matvec(sk, v, bad),
         lambda u: sparsify.block_ell_rmatvec(sk, u, bad),
         problem.a, problem.b, problem.fe,
-        tol=tol, max_iter=max_iter,
+        tol=tol, max_iter=max_iter, trace=trace,
     )
     if bad is not None and bool(bad):
         raise IndexError("the block-ELL sketch holds a column id out of range")
     Kt = sparsify.block_ell_to_dense(sk)
-    value = problem.objective(plan_from_scalings(res.u, Kt, res.v))
+    T = plan_from_scalings(res.u, Kt, res.v)
+    value = problem.objective(T)
     nnz = torch.sum(Kt > 0)
-    del Kt
+    cert = None
+    if certify:
+        eps = float(problem.eps)
+        f, g = _potentials_from_scalings(res.u, res.v, eps)
+        cert = _plan_cert(problem, T, value, f, g, cost=_kernel_cost(Kt, eps))
+    del T, Kt
     return Solution(
         method="spar_sink_block_ell", problem=problem, value=value, result=res, domain="scaling",
-        nnz=nnz,
+        nnz=nnz, certificate=cert,
         _plan_thunk=lambda: plan_from_scalings(res.u, sparsify.block_ell_to_dense(sk), res.v),
     )
 
@@ -634,6 +766,8 @@ def _solve_spar_sink_block_ell(
     probs: torch.Tensor | None = None,
     tol: float = DEFAULT_TOL,
     max_iter: int = 1000,
+    trace: bool | int = False,
+    certify: bool = False,
 ) -> Solution:
     """Spar-Sink with the importance sketch drawn at tile granularity
     (`build_block_ell_sketch`; the random source is ``generator``, a
@@ -644,7 +778,7 @@ def _solve_spar_sink_block_ell(
     sk = build_block_ell_sketch(
         problem, gen, s, block=block, max_blocks=max_blocks, shrinkage=shrinkage, probs=probs
     )
-    return _block_ell_solution(problem, sk, tol, max_iter)
+    return _block_ell_solution(problem, sk, tol, max_iter, trace=trace, certify=certify)
 
 
 # --------------------------------------------------------------------------
@@ -653,14 +787,14 @@ def _solve_spar_sink_block_ell(
 
 
 @register_solver("greenkhorn")
-def _solve_greenkhorn(problem: OTProblem, *, n_updates: int | None = None) -> Solution:
+def _solve_greenkhorn(problem: OTProblem, *, n_updates: int | None = None, certify: bool = False) -> Solution:
     """Greedy single-coordinate scalings; ``n_updates`` defaults to 5(n+m)."""
     n, m = problem.shape
     if n_updates is None:
         n_updates = 5 * (n + m)
     K = problem.kernel()
     res = greenkhorn(K, problem.a, problem.b, n_updates, fe=float(problem.fe))
-    return _dense_solution(problem, "greenkhorn", res, K)
+    return _dense_solution(problem, "greenkhorn", res, K, certify=certify)
 
 
 @register_solver("nys_sink")
@@ -672,11 +806,14 @@ def _solve_nys_sink(
     rank: int | None = None,
     tol: float = DEFAULT_TOL,
     max_iter: int = 1000,
+    certify: bool = False,
 ) -> Solution:
     """Nystrom low-rank kernel (``rank`` landmarks, default ``min(n, m)/20``,
     at least 2) + Sinkhorn. Needs a near-PSD K (it fails on WFR). The
     objective is taken on a transient dense plan; the `Solution` keeps the
-    O(n r) factors and rebuilds the plan on first access."""
+    O(n r) factors and rebuilds the plan on first access. The certificate
+    is taken against the low-rank kernel the solver optimized (its negative
+    entries fall outside the certified support)."""
     n, m = problem.shape
     if rank is None:
         rank = max(2, min(n, m) // 20)
@@ -684,16 +821,24 @@ def _solve_nys_sink(
         _generator(problem, generator, seed), problem.kernel(), problem.a, problem.b, rank,
         tol=tol, max_iter=max_iter, fe=problem.fe,
     )
-    value = problem.objective(plan_from_scalings(res.u, nk.dense(), res.v))
+    T = plan_from_scalings(res.u, nk.dense(), res.v)
+    value = problem.objective(T)
+    cert = None
+    if certify:
+        eps = float(problem.eps)
+        f, g = _potentials_from_scalings(res.u, res.v, eps)
+        cert = _plan_cert(problem, T, value, f, g, cost=_kernel_cost(nk.dense(), eps))
+    del T
     return Solution(
-        method="nys_sink", problem=problem, value=value, result=res, domain="scaling",
+        method="nys_sink", problem=problem, value=value, result=res, domain="scaling", certificate=cert,
         _plan_thunk=lambda: plan_from_scalings(res.u, nk.dense(), res.v),
     )
 
 
 @register_solver("screenkhorn_lite")
 def _solve_screenkhorn_lite(
-    problem: OTProblem, *, decimation: int = 3, tol: float = DEFAULT_TOL, max_iter: int = 1000
+    problem: OTProblem, *, decimation: int = 3, tol: float = DEFAULT_TOL, max_iter: int = 1000,
+    certify: bool = False,
 ) -> Solution:
     """Static active-set screening; screened-out atoms keep zero scalings."""
     K = problem.kernel()
@@ -701,4 +846,4 @@ def _solve_screenkhorn_lite(
         K, problem.a, problem.b, decimation=decimation, tol=tol, max_iter=max_iter,
         fe=problem.fe, renormalize=problem.is_balanced,
     )
-    return _dense_solution(problem, "screenkhorn_lite", res, K)
+    return _dense_solution(problem, "screenkhorn_lite", res, K, certify=certify)

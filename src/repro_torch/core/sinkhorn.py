@@ -14,6 +14,12 @@ one per iteration). A frozen iteration still costs its compute: at most
   ``||du||_1 + ||dv||_1 <= tol``;
 * log domain: potentials ``f = eps log u``, ``g = eps log v``, stopping on
   ``max|df| + max|dg| <= tol``.
+
+``trace=True`` (or a ring length) carries a `repro_torch.obs.SolverTrace`
+in the loop state, so a frozen iteration writes no record; with the
+default ``trace=False`` a loop dispatches exactly the ops it did before
+telemetry. The log loops take ``init=(f0, g0)`` to warm-start the
+potentials.
 """
 from __future__ import annotations
 
@@ -21,6 +27,8 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+
+from repro_torch.obs.trace import SolverTrace, empty_trace, record_iteration, resolve_trace_len
 
 __all__ = [
     "STATUS_CONVERGED",
@@ -86,6 +94,8 @@ class SinkhornResult(NamedTuple):
     err: torch.Tensor
     #: why the loop stopped: one of the ``STATUS_*`` codes
     status: torch.Tensor | None = None
+    #: per-iteration ring-buffer telemetry; ``None`` unless ``trace=True``
+    trace: SolverTrace | None = None
 
     @property
     def converged(self) -> torch.Tensor | None:
@@ -123,6 +133,30 @@ def _run(state: dict, active: torch.Tensor, step, max_iter: int) -> tuple[dict, 
     return state, active
 
 
+def _trace_state(trace: bool | int, dtype, device) -> dict:
+    """The ring buffers of a traced loop, as entries of its state."""
+    tr = empty_trace(resolve_trace_len(trace), dtype, device=device)
+    return dict(trace_err=tr.err, trace_marg=tr.marg, n_matvec=tr.n_matvec)
+
+
+def _trace_of(s: dict) -> SolverTrace:
+    return SolverTrace(s["trace_err"], s["trace_marg"], s["n_matvec"])
+
+
+def _record(s: dict, err: torch.Tensor, marg: torch.Tensor) -> dict:
+    """State entries with iteration ``s["t"]``'s record written."""
+    tr = record_iteration(_trace_of(s), s["t"], err, marg)
+    return dict(trace_err=tr.err, trace_marg=tr.marg, n_matvec=tr.n_matvec)
+
+
+def _warm_start(init, like: torch.Tensor) -> torch.Tensor:
+    """An ``init`` potential on ``like``'s dtype and device, its non-finite
+    entries at 0 (``-inf`` dead-atom pins of an earlier solve must not wedge
+    the stopping rule)."""
+    x = torch.as_tensor(init, dtype=like.dtype, device=like.device)
+    return torch.where(torch.isfinite(x), x, 0.0)
+
+
 def generic_scaling_loop(
     matvec: Callable[[torch.Tensor], torch.Tensor],
     rmatvec: Callable[[torch.Tensor], torch.Tensor],
@@ -133,6 +167,7 @@ def generic_scaling_loop(
     tol: float = 1e-6,
     max_iter: int = 1000,
     patience: int = 100,
+    trace: bool | int = False,
 ) -> SinkhornResult:
     """Scaling-domain Sinkhorn: the shared engine behind Algorithms 1-4.
 
@@ -140,6 +175,7 @@ def generic_scaling_loop(
     when the column-marginal violation has not improved by a relative 1e-4
     for ``patience`` iterations (a random sketch whose bipartite graph
     pinches a sub-marginal converges in plan while its scalings drift).
+    ``trace`` records each iteration's error and that violation.
     """
     dev = a.device
     # finite "huge" sentinel: keeps the first check truthy while letting
@@ -149,6 +185,8 @@ def generic_scaling_loop(
     state = dict(
         u=torch.ones_like(a), v=torch.ones_like(b), t=zero, err=big, best=big, since=zero
     )
+    if trace:
+        state.update(_trace_state(trace, a.dtype, dev))
 
     def cond(s):
         return (
@@ -170,6 +208,8 @@ def generic_scaling_loop(
             best=torch.minimum(s["best"], marg),
             since=torch.where(improved, 0, s["since"] + 1).to(torch.int32),
         )
+        if trace:
+            new.update(_record(s, err, marg))
         return new, cond(new)
 
     s, _ = _run(state, cond(state), step, max_iter)
@@ -177,7 +217,7 @@ def generic_scaling_loop(
     bad = ~(torch.isfinite(err) & torch.all(torch.isfinite(u)) & torch.all(torch.isfinite(v)))
     degenerate = (torch.max(u) <= 0.0) | (torch.max(v) <= 0.0)
     status = _status_code(bad, degenerate, err, tol, s["since"] >= patience)
-    return SinkhornResult(u, v, s["t"], err, status)
+    return SinkhornResult(u, v, s["t"], err, status, _trace_of(s) if trace else None)
 
 
 def _log_domain_status(f, g, err, tol, stalled=False) -> torch.Tensor:
@@ -203,21 +243,35 @@ def generic_log_loop(
     *,
     tol: float = 1e-9,
     max_iter: int = 1000,
+    trace: bool | int = False,
+    init: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> SinkhornResult:
     """Log-domain Sinkhorn on dual potentials ``f = eps log u``, ``g = eps log v``.
 
     ``lse_row(g) = logsumexp_j(log K_ij + g_j / eps)`` (shape n),
     ``lse_col(f) = logsumexp_i(log K_ij + f_i / eps)`` (shape m).
     Stops on ``max|f - f_prev| + max|g - g_prev| <= tol``.
+
+    ``init=(f0, g0)`` warm-starts the potentials (re-tightening at a
+    smaller ``eps`` from an eps-bumped solve); non-finite entries fall back
+    to 0. The stopping rule needs no marginal, so only ``trace`` computes
+    the column-marginal violation ``sum|exp(g/eps + lse_col(f_new)) - b|``.
     """
     dev = loga.device
     neg_inf_a = torch.isneginf(loga)
     neg_inf_b = torch.isneginf(logb)
+    if init is None:
+        f0, g0 = torch.zeros_like(loga), torch.zeros_like(logb)
+    else:
+        f0, g0 = _warm_start(init[0], loga), _warm_start(init[1], logb)
     state = dict(
-        f=torch.zeros_like(loga), g=torch.zeros_like(logb),
+        f=f0, g=g0,
         t=torch.zeros((), dtype=torch.int32, device=dev),
         err=torch.tensor(math.inf, dtype=loga.dtype, device=dev),
     )
+    if trace:
+        state.update(_trace_state(trace, loga.dtype, dev))
+        b_lin = torch.exp(logb)
 
     def cond(s):
         return (s["err"] > tol) & (s["t"] < max_iter)
@@ -225,16 +279,21 @@ def generic_log_loop(
     def step(s):
         f_new = fe * eps * (loga - lse_row(s["g"]))
         f_new = torch.where(neg_inf_a, -math.inf, f_new)
-        g_new = fe * eps * (logb - lse_col(f_new))
+        lc = lse_col(f_new)
+        g_new = fe * eps * (logb - lc)
         g_new = torch.where(neg_inf_b, -math.inf, g_new)
         df = torch.where(neg_inf_a, 0.0, torch.abs(f_new - s["f"]))
         dg = torch.where(neg_inf_b, 0.0, torch.abs(g_new - s["g"]))
         new = dict(f=f_new, g=g_new, t=s["t"] + 1, err=torch.max(df) + torch.max(dg))
+        if trace:
+            g = s["g"]
+            col_marg = torch.where(torch.isneginf(g) | torch.isneginf(lc), 0.0, torch.exp(g / eps + lc))
+            new.update(_record(s, new["err"], torch.sum(torch.abs(col_marg - b_lin))))
         return new, cond(new)
 
     s, _ = _run(state, cond(state), step, max_iter)
     f, g, err = s["f"], s["g"], s["err"]
-    return SinkhornResult(f, g, s["t"], err, _log_domain_status(f, g, err, tol))
+    return SinkhornResult(f, g, s["t"], err, _log_domain_status(f, g, err, tol), _trace_of(s) if trace else None)
 
 
 def generic_sparse_log_loop(
@@ -248,6 +307,8 @@ def generic_sparse_log_loop(
     tol: float = 1e-6,
     max_iter: int = 1000,
     patience: int = 100,
+    trace: bool | int = False,
+    init: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> SinkhornResult:
     """Log-domain Sinkhorn on a sparse (sketched) kernel.
 
@@ -255,7 +316,8 @@ def generic_sparse_log_loop(
     random sketches: an atom whose sparse logsumexp is ``-inf`` (no live
     sampled entry) is pinned to ``-inf``, the log image of the scaling
     loop's `_safe_div` zeros; and the scaling loop's stall detection on the
-    column-marginal violation.
+    column-marginal violation, which ``trace`` records. ``init=(f0, g0)``
+    warm-starts as in `generic_log_loop`, dead atoms then pinned.
     """
     dev = loga.device
     neg_inf_a = torch.isneginf(loga)
@@ -263,11 +325,15 @@ def generic_sparse_log_loop(
     big = torch.tensor(torch.finfo(loga.dtype).max, dtype=loga.dtype, device=dev)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     # dead atoms start pinned, so their first 0 -> -inf jump is no error
-    state = dict(
-        f=torch.where(neg_inf_a, -math.inf, torch.zeros_like(loga)),
-        g=torch.where(neg_inf_b, -math.inf, torch.zeros_like(logb)),
-        t=zero, err=big, best=big, since=zero,
-    )
+    if init is None:
+        f0 = torch.where(neg_inf_a, -math.inf, torch.zeros_like(loga))
+        g0 = torch.where(neg_inf_b, -math.inf, torch.zeros_like(logb))
+    else:
+        f0 = torch.where(neg_inf_a, -math.inf, _warm_start(init[0], loga))
+        g0 = torch.where(neg_inf_b, -math.inf, _warm_start(init[1], logb))
+    state = dict(f=f0, g=g0, t=zero, err=big, best=big, since=zero)
+    if trace:
+        state.update(_trace_state(trace, loga.dtype, dev))
     b_lin = torch.exp(logb)
 
     def cond(s):
@@ -294,12 +360,14 @@ def generic_sparse_log_loop(
             best=torch.minimum(s["best"], marg),
             since=torch.where(improved, 0, s["since"] + 1).to(torch.int32),
         )
+        if trace:
+            new.update(_record(s, new["err"], marg))
         return new, cond(new)
 
     s, _ = _run(state, cond(state), step, max_iter)
     f, g, err = s["f"], s["g"], s["err"]
     status = _log_domain_status(f, g, err, tol, s["since"] >= patience)
-    return SinkhornResult(f, g, s["t"], err, status)
+    return SinkhornResult(f, g, s["t"], err, status, _trace_of(s) if trace else None)
 
 
 # --------------------------------------------------------------------------
@@ -307,20 +375,23 @@ def generic_sparse_log_loop(
 # --------------------------------------------------------------------------
 
 
-def sinkhorn(K, a, b, *, tol: float = 1e-6, max_iter: int = 1000) -> SinkhornResult:
+def sinkhorn(
+    K, a, b, *, tol: float = 1e-6, max_iter: int = 1000, trace: bool | int = False
+) -> SinkhornResult:
     """Algorithm 1: SINKHORNOT(K, a, b, tol)."""
     return generic_scaling_loop(
-        lambda v: K @ v, lambda u: K.T @ u, a, b, 1.0, tol=tol, max_iter=max_iter
+        lambda v: K @ v, lambda u: K.T @ u, a, b, 1.0, tol=tol, max_iter=max_iter, trace=trace
     )
 
 
 def sinkhorn_uot(
-    K, a, b, lam: float, eps: float, *, tol: float = 1e-6, max_iter: int = 1000
+    K, a, b, lam: float, eps: float, *, tol: float = 1e-6, max_iter: int = 1000,
+    trace: bool | int = False,
 ) -> SinkhornResult:
     """Algorithm 2: SINKHORNUOT(K, a, b, lam, eps, tol)."""
     return generic_scaling_loop(
         lambda v: K @ v, lambda u: K.T @ u, a, b, lam / (lam + eps),
-        tol=tol, max_iter=max_iter,
+        tol=tol, max_iter=max_iter, trace=trace,
     )
 
 
@@ -335,22 +406,25 @@ def _dense_lse(logK: torch.Tensor, eps: float):
 
 
 def sinkhorn_log(
-    logK, a, b, eps: float, *, tol: float = 1e-9, max_iter: int = 1000
+    logK, a, b, eps: float, *, tol: float = 1e-9, max_iter: int = 1000,
+    trace: bool | int = False, init: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> SinkhornResult:
-    """Log-domain Algorithm 1; returns potentials ``(f, g)``."""
+    """Log-domain Algorithm 1; returns potentials ``(f, g)``; ``init=(f0,
+    g0)`` warm-starts them (see `generic_log_loop`)."""
     return generic_log_loop(
         *_dense_lse(logK, eps), _masked_log(a), _masked_log(b), eps, 1.0,
-        tol=tol, max_iter=max_iter,
+        tol=tol, max_iter=max_iter, trace=trace, init=init,
     )
 
 
 def sinkhorn_uot_log(
-    logK, a, b, lam: float, eps: float, *, tol: float = 1e-9, max_iter: int = 1000
+    logK, a, b, lam: float, eps: float, *, tol: float = 1e-9, max_iter: int = 1000,
+    trace: bool | int = False, init: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> SinkhornResult:
     """Log-domain Algorithm 2; returns potentials ``(f, g)``."""
     return generic_log_loop(
         *_dense_lse(logK, eps), _masked_log(a), _masked_log(b), eps,
-        lam / (lam + eps), tol=tol, max_iter=max_iter,
+        lam / (lam + eps), tol=tol, max_iter=max_iter, trace=trace, init=init,
     )
 
 

@@ -91,9 +91,12 @@ def test_registry_lists_methods_and_rejects_bad_calls():
     problem = _problem()
     with pytest.raises(KeyError, match="available: " + ", ".join(methods)):
         solve(problem, method="sinkhorn_knopp")
-    for opt in (dict(init=(None, None)), dict(key=0)):
+    for opt in (dict(warm_start=(None, None)), dict(key=0)):
         with pytest.raises(TypeError, match="unexpected option"):
             solve(problem, method="spar_sink_mf", s=100.0, seed=0, **opt)
+    # init= is an option of the log-domain path only, as in the reference
+    with pytest.raises(ValueError, match="requires the log-domain stabilize=True path"):
+        solve(problem, method="spar_sink_mf", s=100.0, seed=0, init=(None, None))
     # the small-n test mode is an option of spar_sink_mf now
     sol = solve(problem, method="spar_sink_mf", s=100.0, seed=0, shared_variates=True)
     assert sol.method == "spar_sink_mf" and math.isfinite(float(sol.value)) and int(sol.nnz) > 0

@@ -436,7 +436,8 @@ def test_solve_runs_two_matvecs_per_executed_iteration(monkeypatch):
 def test_registry_lists_block_ell_and_rejects_bad_options():
     assert "spar_sink_block_ell" in available_methods()
     _, tp = _api_problems("ot")
-    for opt in (dict(trace=True), dict(certify=True), dict(key=0)):
+    # trace= and certify= are options here, as in the reference; init= is not
+    for opt in (dict(init=(None, None)), dict(stabilize=True), dict(key=0)):
         with pytest.raises(TypeError, match="unexpected option"):
             solve(tp, method="spar_sink_block_ell", s=100.0, seed=0, **opt)
     with pytest.raises(TypeError, match=r"requires option\(s\) \['s'\]"):
