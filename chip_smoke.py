@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --compare-with OTHER.cu [OTHER.cu ...]
+    python3 chip_smoke.py --run-b-with OTHER_CHECKOUT
 
 Run from a checkout of the repository on a machine with an NVIDIA H100.
 The first run builds the CUDA kernels (every ``src/repro_torch/kernels/
@@ -146,6 +147,33 @@ failure exits non-zero):
    3 measures (and the L1 distance between them), and ``prox_sinkhorn``
    and ``prox_spar_sink`` at n = 2048. Phase 10's counted solves add their
    launches to the kernels line.
+11. (run right after phase 10) OT serving: (i) the batched executor on 16
+   mixed OT/UOT point-cloud problems in the 1024 and 2048 buckets, each UOT
+   one with a lam of its own (`PARITY_LAMS`): ``dense``
+   and ``log`` against their per-problem solves (iterations and status
+   equal, values within ``DENSE_BATCH_RTOL`` of the largest entry), and
+   ``spar_sink_mf`` in both domains bitwise the per-problem ``solve(seed=i)``
+   (u, v, iterations, nnz, status, value, plan entries), 16 B1 (or
+   cost-only) launches a dispatch, no cache fill on a repeat; the flat
+   segment sums and logsumexps of a stacked sketch bitwise each element's
+   own; (ii) `OTServer` on 64 requests of the serving CLI's kind (d = 3,
+   sizes 2048–16384, ``spar_sink_mf`` at s = 8 s0(16384), max_batch 16,
+   deadline 20 ms), scaling and log domain: a warm stream under the
+   profiler (the card's busy share), then a timed stream (req/s, p50/p95/p99
+   latency, mean batch, cache fills, peak memory, one B1 or cost-only
+   launch a request and nothing else; B1 and its cost-only mode on one
+   served 16384-point sketch's pairs against their plain versions), then
+   the same requests as 64 counted
+   per-problem solves (the speedup), every served value equal to its
+   per-problem one; and the launches of one batched and one per-problem
+   iteration; (iii) ``solve_batch(robust=True)`` on 8 UOT problems by
+   ``spar_sink_coo`` with one `undersized_cap` and one NaN `ChaosGeometry`
+   kernel: only those two escalate, the rest bitwise the plain batch;
+   ``OTServer(robust=True)`` with two attempts recovers the NaN one and
+   fails the undersized one with ``UnrecoverableSolve``; a breaker over a
+   `FlakyExecutor` opens, sheds with ``CircuitOpen`` and closes on its
+   half-open probe. Phase 11's dispatched, served and per-problem solves add
+   their launches to the kernels line.
 
 ``--profile`` also runs (a), one prefill, one serving decode step and one
 train step under `torch.profiler` and prints where their device time goes.
@@ -157,6 +185,9 @@ profiler's device time (`compare_sources`, which also prints both online
 kernels' inner-loop SASS mix; `compare_block_ell`, both products;
 `compare_lru_scan`, B5 and B6; `compare_gather`, B1 bare and as the sketch
 calls it, bitwise or not, with its loads and stores in the SASS).
+``--run-b-with`` runs no phase but 1: it solves phase 3's runs (b) and (a)
+from another checkout (say the parent commit, ``git archive`` unpacked
+under ``build/``) and from this one in turns (`compare_run_b`).
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout, it exits non-zero before printing any result.
@@ -2787,6 +2818,427 @@ def run_observability_phase(device, runs: dict, scalings_a, value_dense: float, 
 
 
 # --------------------------------------------------------------------------
+# Phase 11: OT serving (the batched engine, the ladder and breaker, OTServer)
+# --------------------------------------------------------------------------
+
+#: (i)'s executor parity batch: 16 mixed OT/UOT point-cloud problems in two
+#: buckets (1024 and 2048)
+PARITY_SIZES = (1000, 1024, 1800, 2048)
+#: (i)'s UOT elements' lams, one each: each scaling update raises to an
+#: exponent lam / (lam + eps) of its own, 0.1 = eps the special x ** 0.5
+PARITY_LAMS = (0.5, 0.1, 0.3, 0.7, 2.0, 1.0, 0.2, 5.0)
+#: (ii)'s served traffic: the reference CLI's request kind at card scale
+SERVE_REQUESTS, SERVE_SIZES, SERVE_MAX_BATCH, SERVE_DEADLINE_S = 64, (2048, 4096, 8192, 16384), 16, 0.02
+#: dense and log batched against their per-problem solves: relative to the
+#: largest |entry| (the batched (B, n, m) products and logsumexps reduce
+#: over the padded bucket, the per-problem ones over the true support)
+DENSE_BATCH_RTOL = 1e-12
+
+
+def _parity_problems(device, count: int = 16, sizes=PARITY_SIZES, seed: int = 11, uot_only: bool = False,
+                     lams=(0.5,)):
+    """Mixed OT/UOT point-cloud problems of the serving CLI's kind (d = 3,
+    eps 0.1, UOT masses 5/3; all UOT with ``uot_only``), sizes cycling
+    through ``sizes``, the UOT ones' lam through ``lams``."""
+    import numpy as np
+
+    import repro_torch as rt
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        n = sizes[i % len(sizes)]
+        x, a, b = rng.uniform(size=(n, 3)), rng.dirichlet(np.ones(n)), rng.dirichlet(np.ones(n))
+        geom = rt.PointCloudGeometry(x, device=device)
+        uot = uot_only or i % 2
+        lam = lams[len(out) % len(lams) if uot_only else (i // 2) % len(lams)]
+        out.append(rt.UOTProblem(geom, a * 5.0, b * 3.0, 0.1, lam=lam) if uot else rt.OTProblem(geom, a, b, 0.1))
+    return out
+
+
+def _launches_into(total: dict, counts: dict) -> None:
+    for name, count in counts.items():
+        total[name] = total.get(name, 0) + count
+
+
+def batched_dispatch(total: dict, executor, problems, **opts):
+    """One counted ``solve_batch`` (counts set to 0 just before, read just
+    after, added into ``total``): ``(solutions, wall s, launches)``."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sols = executor.solve_batch(problems, **opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: count for name, count in ops.LAUNCHES.items() if count}
+    _launches_into(total, counts)
+    return sols, wall, counts
+
+
+def segment_locality(sketch, log_space: bool) -> None:
+    """CUDA's `segment_reduce` on the flat batched layout against each
+    element's own reduction: disjoint segments must give bitwise the
+    per-element ``K~ v``, ``K~^T u`` (or their logsumexps)."""
+    import torch
+
+    from repro_torch.core import sparsify
+    from repro_torch.kernels import ops
+
+    B, cap = sketch.rows.shape
+    n = int(sketch.rows.max()) + 1
+    m = int(sketch.cols.max()) + 1
+    gen = torch.Generator(device=sketch.rows.device).manual_seed(5)
+    v = torch.rand((B, m), dtype=torch.float64, device=sketch.rows.device, generator=gen)
+    u = torch.rand((B, n), dtype=torch.float64, device=sketch.rows.device, generator=gen)
+    csort = sketch.csort
+    if log_space:
+        row = ops.batched_coo_logsumexp(sketch.rows, sketch.vals + v.gather(1, sketch.cols), n=n,
+                                        indices_are_sorted=True)
+        z = (sketch.vals + u.gather(1, sketch.rows)).gather(1, csort)
+        col = ops.batched_coo_logsumexp(sketch.cols.gather(1, csort), z, n=m, indices_are_sorted=True)
+    else:
+        row = ops.batched_coo_matvec(sketch.rows, sketch.vals, v.gather(1, sketch.cols), n=n, indices_are_sorted=True)
+        col = ops.batched_coo_rmatvec(sketch.cols.gather(1, csort), sketch.vals.gather(1, csort),
+                                      u.gather(1, sketch.rows).gather(1, csort), m=m, indices_are_sorted=True)
+    for j in range(B):
+        c = sketch.element_cap(j)
+        cls = sparsify.LogSparseKernelCOO if log_space else sparsify.SparseKernelCOO
+        sk = cls(sketch.rows[j, :c], sketch.cols[j, :c], sketch.vals[j, :c], sketch.nnz[j], n, m,
+                 csort=sketch.csort[j, :c])
+        if log_space:
+            r_j, c_j = sparsify.coo_lse_row(sk, v[j]), sparsify.coo_lse_col(sk, u[j])
+        else:
+            r_j, c_j = sparsify.coo_matvec(sk, v[j]), sparsify.coo_rmatvec(sk, u[j])
+        check(torch.equal(row[j], r_j) and torch.equal(col[j], c_j),
+              f"phase 11: the flat segment reduction of element {j} differs from its own "
+              f"(max abs {float((row[j] - r_j).abs().nan_to_num().max())!r}, "
+              f"{float((col[j] - c_j).abs().nan_to_num().max())!r})")
+    log(f"phase 11: flat segment {'logsumexp' if log_space else 'sums'} over B={B} x cap={cap} bitwise each "
+        f"element's own, both directions")
+
+
+def executor_parity(total: dict, device) -> None:
+    """Phase 11 (i)."""
+    import torch
+
+    import repro_torch as rt
+    from repro_torch.batch import BucketedExecutor, build_batched_mf_log_sketch, build_batched_mf_sketch
+    from repro_torch.obs.metrics import MetricsRegistry
+
+    problems = _parity_problems(device, lams=PARITY_LAMS)
+    ex = BucketedExecutor(metrics=MetricsRegistry())
+    for method, tol in (("dense", 1e-9), ("log", 1e-9)):
+        sols, wall, _ = batched_dispatch(total, ex, problems, method=method, tol=tol, max_iter=2000)
+        worst = 0.0
+        for p, sol in zip(problems, sols):
+            ref = rt.solve(p, method=method, tol=tol, max_iter=2000)
+            check((int(sol.n_iter), sol.status_label) == (int(ref.n_iter), ref.status_label),
+                  f"phase 11 {method} {p.shape}: batched {int(sol.n_iter)} {sol.status_label}, per-problem "
+                  f"{int(ref.n_iter)} {ref.status_label}")
+            for x, y in ((sol.result.u, ref.result.u), (sol.result.v, ref.result.v), (sol.value, ref.value)):
+                fin = torch.isfinite(y)
+                check(torch.equal(fin, torch.isfinite(x)), f"phase 11 {method}: the finite entries differ")
+                scale = float(y[fin].abs().max()) if bool(fin.any()) else 1.0
+                worst = max(worst, float((x[fin] - y[fin]).abs().max()) / scale if bool(fin.any()) else 0.0)
+        check(worst <= DENSE_BATCH_RTOL, f"phase 11 {method}: batched against per-problem {worst!r}")
+        log(f"phase 11 (i) {method}: 16 problems in 2 buckets, UOT lams {PARITY_LAMS}, {wall!r} s batched; "
+            f"iterations and status equal, "
+            f"u, v and value within {worst!r} of the largest entry (tolerance {DENSE_BATCH_RTOL})")
+    s = 8 * rt.s0(2048)
+    seeds = list(range(16))
+    for stabilize in (False, True):
+        opts = dict(method="spar_sink_mf", seeds=seeds, s=s, tol=1e-6, max_iter=2000, stabilize=stabilize)
+        before = ex.compile_count
+        sols, wall, counts = batched_dispatch(total, ex, problems, **opts)
+        fills = ex.compile_count - before
+        want = {"gathered_cost" if stabilize else "gathered_kernel": 16}
+        check(counts == want, f"phase 11 spar_sink_mf stabilize={stabilize}: the dispatch launched {counts}")
+        for i, (p, sol) in enumerate(zip(problems, sols)):
+            ref = rt.solve(p, method="spar_sink_mf", seed=i, s=s, tol=1e-6, max_iter=2000, stabilize=stabilize)
+            same = (torch.equal(sol.result.u, ref.result.u) and torch.equal(sol.result.v, ref.result.v)
+                    and int(sol.n_iter) == int(ref.n_iter) and int(sol.nnz) == int(ref.nnz)
+                    and sol.status_label == ref.status_label and float(sol.value) == float(ref.value))
+            plan, rplan = sol.plan(), ref.plan()
+            same = same and all(torch.equal(getattr(plan, f), getattr(rplan, f)) for f in ("rows", "cols", "vals"))
+            check(same, f"phase 11 spar_sink_mf stabilize={stabilize} problem {i} {p.shape}: batched is not "
+                  f"bitwise the per-problem solve (u max abs {float((sol.result.u - ref.result.u).abs().max())!r}, "
+                  f"iterations {int(sol.n_iter)}/{int(ref.n_iter)})")
+        _, wall2, _ = batched_dispatch(total, ex, problems, **opts)
+        check(ex.compile_count == before + fills, "phase 11: a repeat dispatch filled the cache again")
+        log(f"phase 11 (i) spar_sink_mf stabilize={stabilize} s={s!r}: 16 problems in 2 buckets (UOT lams "
+            f"{PARITY_LAMS}), {fills} cache "
+            f"fills, then none on the repeat; u, v, n_iter, nnz, status, value and plan entries bitwise the "
+            f"per-problem solve(seed=i); {counts}; dispatch {wall!r} s, repeat {wall2!r} s")
+        build = build_batched_mf_log_sketch if stabilize else build_batched_mf_sketch
+        group = [p for p in problems if p.shape[0] > 1024]
+        gens = [torch.Generator(device=device).manual_seed(i) for i in range(len(group))]
+        segment_locality(build(group, gens, s), stabilize)
+    log(f"phase 11 (i) executor metrics: hits {ex.metrics.get_counter('executor.cache_hit')!r}, misses "
+        f"{ex.metrics.get_counter('executor.cache_miss')!r}, entries {ex.metrics.get_gauge('executor.cache_entries')!r}, "
+        f"occupancy {json.dumps(ex.metrics.get_histogram('executor.bucket_occupancy'))}, dispatch s "
+        f"{json.dumps(ex.metrics.get_histogram('executor.dispatch_seconds'))}")
+
+
+def per_iteration_launches(device, stabilize: bool) -> tuple[int, int]:
+    """Kernel launches of one batched iteration (16 full 16384 buckets'
+    solve at max_iter 32 less the same at 16, by the profiler), and of a
+    per-problem iteration the same way."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch as rt
+    from repro_torch.batch import BatchedProblem, build_batched_mf_log_sketch, build_batched_mf_sketch
+    from repro_torch.batch import get_batched_solver
+
+    problems = _parity_problems(device, count=16, sizes=(16384,), seed=3)
+    s = 8 * rt.s0(16384)
+    build = build_batched_mf_log_sketch if stabilize else build_batched_mf_sketch
+    sk = build(problems, [torch.Generator(device=device).manual_seed(i) for i in range(16)], s)
+    bp = BatchedProblem.from_problems(problems, materialize_cost=False)
+    solver = get_batched_solver("spar_sink_mf")
+
+    def kernels(fn) -> int:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+    def batched(k):
+        return lambda: solver(bp, sk, stabilize=stabilize, tol=0.0, max_iter=k)
+
+    def single(k):
+        return lambda: rt.solve(problems[0], method="spar_sink_mf", seed=0, s=s, tol=0.0, max_iter=k,
+                                stabilize=stabilize)
+
+    kernels(batched(16))
+    return ((kernels(batched(32)) - kernels(batched(16))) // 16, (kernels(single(32)) - kernels(single(16))) // 16)
+
+
+def busy_share(fn) -> tuple[float, float, object]:
+    """``fn()`` under `torch.profiler`: the card's busy share (kernel device
+    time over the wall) and the wall; returns ``(share, wall s, fn())``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return busy_us / 1e6 / wall, wall, out
+
+
+def served_sketch_kernels(problems, sols) -> None:
+    """B1 and its cost-only mode at (ii)'s own d, n and k: the pairs of one
+    served 16384-point sketch (its whole slice, as the sketch build gave
+    them to the kernel) through `_gathered_case`, against their plain
+    versions at K_TOL / C_TOL and `cost64_excess`'s tolerance. These
+    launches are not counted: the counts are set to 0 before the next
+    counted run."""
+    j = next(i for i, p in enumerate(problems) if p.shape[0] == max(SERVE_SIZES))
+    plan, geom = sols[j].plan(), problems[j].geom
+    err = _gathered_case(geom.x, geom.y, plan.rows, plan.cols, eps=float(problems[j].eps), cost=geom.cost_name,
+                         eta=geom.eta)
+    log(f"phase 11 (ii): B1 and its cost-only mode on request {j}'s served sketch (n = {problems[j].shape[0]}, "
+        f"d = {geom.x.shape[1]}, k = {plan.rows.shape[0]} pairs, nnz {int(plan.nnz)}) against their plain "
+        f"versions: max abs err {err!r}")
+
+
+def serve_streams(total: dict, device) -> dict:
+    """Phase 11 (ii): the server at serving size, scaling and log domain."""
+    import torch
+
+    import repro_torch as rt
+    from repro_torch.batch import BucketedExecutor
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_ot import OTServer, _make_request_problems
+    from repro_torch.obs.metrics import MetricsRegistry
+
+    problems = _make_request_problems(SERVE_REQUESTS, SERVE_SIZES, 0, point_cloud=True, device=device)
+    s = 8 * rt.s0(max(SERVE_SIZES))
+    sizes = sorted({p.shape[0] for p in problems})
+    log(f"phase 11 (ii): {SERVE_REQUESTS} requests, sizes {[sum(p.shape[0] == z for p in problems) for z in sizes]} "
+        f"of {sizes}, s = 8 s0(16384) = {s!r} (cap {rt.default_cap(s)}), max_batch {SERVE_MAX_BATCH}, deadline "
+        f"{SERVE_DEADLINE_S} s")
+    rows = {}
+    for stabilize in (False, True):
+        opts = dict(method="spar_sink_mf", s=s, max_iter=2000, stabilize=stabilize)
+        server = OTServer(BucketedExecutor(metrics=MetricsRegistry()), max_batch=SERVE_MAX_BATCH,
+                          deadline_s=SERVE_DEADLINE_S)
+
+        def stream():
+            futures = [server.submit(p, seed=i, **opts) for i, p in enumerate(problems)]
+            return [f.result() for f in futures]
+
+        with server:
+            ops.reset_launch_counts()
+            t_prof = time.perf_counter()
+            share, warm_s, _ = busy_share(stream)
+            prof_s = time.perf_counter() - t_prof
+            _launches_into(total, ops.LAUNCHES)
+            server.reset_stats()
+            server.metrics.reset("executor.")  # the timed stream's dispatches alone
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            sols = stream()
+            values = [float(sol.value) for sol in sols]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(ops.LAUNCHES)
+            _launches_into(total, counts)
+            peak = torch.cuda.max_memory_allocated() - base
+        st = server.stats()
+        if not stabilize:
+            served_sketch_kernels(problems, sols)
+        iters = [int(sol.n_iter) for sol in sols]
+        statuses = sorted({sol.status_label for sol in sols})
+        del sols
+        name = "gathered_cost" if stabilize else "gathered_kernel"
+        check(counts[name] == SERVE_REQUESTS and sum(counts.values()) == SERVE_REQUESTS,
+              f"phase 11 (ii) stabilize={stabilize}: the timed stream launched {counts}")
+        check(all(math.isfinite(v) for v in values), f"phase 11 (ii) stabilize={stabilize}: a value is not finite")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serial = []
+        for i, p in enumerate(problems):
+            sol, value, _, launches = counted_solve(total, p, "spar_sink_mf", seed=i, **{
+                k: v for k, v in opts.items() if k != "method"})
+            serial.append(value)
+        serial_s = time.perf_counter() - t0
+        differ = [i for i, (x, y) in enumerate(zip(values, serial)) if x != y]
+        check(not differ, f"phase 11 (ii) stabilize={stabilize}: served values differ from the per-problem "
+              f"solves at requests {differ[:8]}")
+        row = dict(stabilize=stabilize, requests=st["requests"], wall_s=wall, req_per_s=st["requests"] / wall,
+                   p50_s=st["p50_latency_s"], p95_s=st["p95_latency_s"], p99_s=st["p99_latency_s"],
+                   batches=st["batches"], mean_batch=st["mean_batch"], compiles=st["compiles"],
+                   busy_share=share, busy_stream_wall_s=warm_s, busy_profile_s=prof_s, peak_bytes=peak,
+                   bucket_dispatches=int(server.metrics.get_histogram("executor.dispatch_seconds")["count"]),
+                   occupancy=server.metrics.get_histogram("executor.bucket_occupancy")["mean"],
+                   padding_waste=server.metrics.get_histogram("executor.padding_waste")["mean"], serial_s=serial_s,
+                   serial_req_per_s=SERVE_REQUESTS / serial_s, speedup=serial_s / wall,
+                   n_iter_min=min(iters), n_iter_max=max(iters), statuses=statuses, launches=counts[name])
+        log("phase 11 (ii) served " + json.dumps(row))
+        log(f"phase 11 (ii) stabilize={stabilize}: every served value equals the per-problem solve(seed=i)'s")
+        rows[stabilize] = row
+    for stabilize in (False, True):
+        t0 = time.perf_counter()
+        batched, single = per_iteration_launches(device, stabilize)
+        log(f"phase 11 (ii) stabilize={stabilize}: {batched} kernel launches a batched iteration (B = 16, n = 16384), "
+            f"{single} a per-problem iteration (profiler; {time.perf_counter() - t0!r} s)")
+    return rows
+
+
+def failure_paths(total: dict, device) -> None:
+    """Phase 11 (iii): the ladder on a batch, the robust server, the breaker.
+    UOT problems, whose sketch solves converge here (the OT ones end in
+    ``stall``, which the ladder would escalate too), by ``spar_sink_coo``,
+    whose sketch reads the dense kernel that `ChaosGeometry` poisons."""
+    import torch
+
+    import repro_torch as rt
+    import repro_torch.robust as rb
+    from repro_torch.batch import BucketedExecutor
+    from repro_torch.launch.serve_ot import CircuitOpen, OTRequest, OTServer, UnrecoverableSolve
+    from repro_torch.obs.metrics import MetricsRegistry
+
+    problems = _parity_problems(device, count=8, sizes=(2048,), seed=21, uot_only=True)
+    s = 8 * rt.s0(2048)
+    method = "spar_sink_coo"
+    short, poisoned = 2, 5
+    problems[poisoned] = rb.corrupt_scaling_kernel(problems[poisoned], 7, mode="nan")
+    caps = [rt.default_cap(s)] * 8
+    caps[short] = rb.undersized_cap(s)
+    opts = dict(method=method, seeds=list(range(8)), s=s, cap=caps, tol=1e-6, max_iter=2000)
+    ex = BucketedExecutor(metrics=MetricsRegistry())
+    plain, _, _ = batched_dispatch(total, ex, problems, **opts)
+    robust, wall, _ = batched_dispatch(total, ex, problems, robust=True, **opts)
+    escalated = [i for i, sol in enumerate(robust) if sol.escalated]
+    history = {i: [(a.action, a.method, a.status, a.overflowed) for a in robust[i].attempts] for i in escalated}
+    check(escalated == [short, poisoned], f"phase 11 (iii): escalated {escalated}, not [{short}, {poisoned}]: "
+          f"{json.dumps(history)}")
+    for i, (p, r) in enumerate(zip(plain, robust)):
+        if i in escalated:
+            continue
+        check(torch.equal(p.result.u, r.result.u) and torch.equal(p.result.v, r.result.v)
+              and float(p.value) == float(r.value), f"phase 11 (iii): element {i} differs from the plain batch")
+    check(all(r.recovered and r.status_label == "converged" for r in robust),
+          f"phase 11 (iii): an element was not recovered: {[(r.recovered, r.status_label) for r in robust]}")
+    log(f"phase 11 (iii) solve_batch({method}, robust=True), {wall!r} s: only {escalated} escalated, the rest "
+        f"bitwise the plain batch; attempts {json.dumps(history)}; escalations "
+        f"{ex.metrics.get_counter('ot_escalations_total')!r}")
+
+    policy = rb.EscalationPolicy(max_attempts=2)
+    ser_opts = dict(method=method, s=s, tol=1e-6, max_iter=2000)
+    with OTServer(BucketedExecutor(metrics=MetricsRegistry()), robust=True, policy=policy, max_batch=4,
+                  deadline_s=0.05) as server:
+        saved = server.submit(problems[poisoned], seed=poisoned, **ser_opts)
+        lost = server.submit(problems[short], seed=short, cap=caps[short], **ser_opts)
+        sol = saved.result(timeout=600)
+        failed = lost.exception(timeout=600)
+    check(sol.recovered and [a.action for a in sol.attempts] == ["initial", "log_domain"],
+          f"phase 11 (iii): the poisoned request gave {[(a.action, a.status) for a in sol.attempts]}")
+    check(isinstance(failed, UnrecoverableSolve), f"phase 11 (iii): the undersized request gave {failed!r}")
+    log(f"phase 11 (iii) OTServer(robust=True, max_attempts=2): the NaN-kernel request recovered by "
+        f"{[(a.action, a.method, a.status) for a in sol.attempts]}; the undersized-cap request failed with "
+        f"UnrecoverableSolve: {failed}")
+
+    clock = rb.SkewedClock()
+    flaky = rb.FlakyExecutor(BucketedExecutor(metrics=MetricsRegistry()), fail_calls={0, 1})
+    srv = OTServer(flaky, clock=clock, breaker=rb.BreakerPolicy(failure_threshold=2, reset_timeout_s=5.0))
+
+    def request():
+        return OTRequest(problems[0], method, torch.Generator(device=device).manual_seed(0),
+                         dict(s=s, tol=1e-6, max_iter=2000))
+
+    for _ in range(2):
+        r = request()
+        srv._dispatch(method, [r])
+        check(isinstance(r.future.exception(timeout=60), rb.InjectedFault), "phase 11 (iii): no injected fault")
+    (brk,) = srv._breakers.values()
+    states = [brk.state_label]
+    shed = request()
+    srv._dispatch(method, [shed])
+    check(isinstance(shed.future.exception(timeout=60), CircuitOpen) and flaky.calls == 2,
+          "phase 11 (iii): the open breaker did not shed")
+    clock.advance(5.1)
+    probe = request()
+    srv._dispatch(method, [probe])
+    probe_status = probe.future.result(timeout=600).status_label
+    check(probe_status == "converged" and brk.state_label == "closed",
+          f"phase 11 (iii): the half-open probe ({probe_status}) left the breaker {brk.state_label}")
+    states += ["shed: CircuitOpen", brk.state_label]
+    log(f"phase 11 (iii) breaker over FlakyExecutor(fail_calls={{0, 1}}): {states}; dispatches {flaky.calls}, "
+        f"faults {flaky.faults}, shed {srv.metrics.get_counter('ot_shed_total')!r}")
+
+
+def run_ot_serving_phase(device) -> dict[str, int]:
+    """Phase 11 (see the module docstring); returns its kernel launches."""
+    total: dict[str, int] = {}
+    t0 = time.perf_counter()
+    executor_parity(total, device)
+    log(f"phase 11 (i) {time.perf_counter() - t0!r} s")
+    t1 = time.perf_counter()
+    serve_streams(total, device)
+    log(f"phase 11 (ii) {time.perf_counter() - t1!r} s")
+    t1 = time.perf_counter()
+    failure_paths(total, device)
+    log(f"phase 11 (iii) {time.perf_counter() - t1!r} s; phase 11 {time.perf_counter() - t0!r} s, launches {total}")
+    return total
+
+
+# --------------------------------------------------------------------------
 # Phase 7: the RecurrentGemma-2B serving slice at full width
 # --------------------------------------------------------------------------
 
@@ -3334,6 +3786,61 @@ def profile_main_path(n: int, device, max_iter: int = 200) -> None:
                   tol=1e-6, max_iter=1000)
 
 
+#: ``--run-b-with``'s child: phase 3's runs (b) and (a) solved from the
+#: checkout whose root is argv[1] (after an untimed (b)); (b)'s potentials
+#: saved to argv[2]; one JSON line out
+RUN_B_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1] + "/src")
+import torch
+from repro_torch.kernels import library
+library.load()
+import repro_torch as rt
+from repro_torch.data.pointclouds import make_measures
+n = 2 ** 17
+a, b, x = make_measures("C1", n, 5, seed=0)
+ot = rt.OTProblem(rt.PointCloudGeometry(x, device=torch.device("cuda", 0)), a, b, 0.1)
+out = {}
+for run, stabilize in (("warm", True), ("b", True), ("a", False)):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = rt.solve(ot, method="spar_sink_mf", seed=0, s=4 * rt.s0(n), tol=1e-6, max_iter=200, stabilize=stabilize)
+    value = float(sol.value)
+    torch.cuda.synchronize()
+    out[run] = dict(value=value, n_iter=int(sol.n_iter), status=sol.status_label, wall_s=time.perf_counter() - t0)
+    if run == "b":
+        torch.save((sol.result.u.cpu(), sol.result.v.cpu()), sys.argv[2])
+del out["warm"]
+print(json.dumps(out))
+"""
+
+
+def compare_run_b(other: Path) -> None:
+    """``--run-b-with OTHER_ROOT``: phase 3's runs (b) and (a) from another
+    checkout (an earlier commit unpacked by ``git archive`` into a directory
+    that ``.gitignore`` lists, its kernels built there) and from this one,
+    each in a process of its own, in turns (other, this, this, other):
+    value, iterations, status and wall of each, then whether (b)'s
+    potentials are bitwise equal, with their largest difference."""
+    import torch
+
+    here = Path(__file__).resolve().parent
+    check((other / "src" / "repro_torch").is_dir(), f"--run-b-with {other}: no src/repro_torch there")
+    out_dir = here / "build" / "run_b"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    potentials = {}
+    for label, root in (("other", other), ("this", here), ("this", here), ("other", other)):
+        path = out_dir / f"{label}.pt"
+        r = subprocess.run([sys.executable, "-c", RUN_B_CHILD, str(root), str(path)], capture_output=True, text=True)
+        check(r.returncode == 0, f"--run-b-with: the run from {root} failed: {r.stderr[-3000:]}")
+        log(f"runs (b), (a) from {label} tree {root}: {r.stdout.strip().splitlines()[-1]}")
+        potentials[label] = torch.load(path)
+    (f_o, g_o), (f_t, g_t) = potentials["other"], potentials["this"]
+    log(f"run (b)'s potentials bitwise equal (other, this): {torch.equal(f_o, f_t)}, {torch.equal(g_o, g_t)}; "
+        f"largest difference {float((f_o - f_t).abs().nan_to_num().max())!r}, "
+        f"{float((g_o - g_t).abs().nan_to_num().max())!r}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     profile_run = "--profile" in sys.argv[1:]
@@ -3367,6 +3874,10 @@ def main() -> int:
     log(f"built and loaded {len(sources)} CUDA sources {sources} in {time.perf_counter() - t0!r} s")
 
     args = sys.argv[1:]
+    if "--run-b-with" in args:
+        compare_run_b(Path(args[args.index("--run-b-with") + 1]).resolve())
+        log(card)
+        return 0
     if "--compare-with" in args:
         # each other source is compared with the current one of its kind
         for other in args[args.index("--compare-with") + 1:]:
@@ -3422,6 +3933,10 @@ def main() -> int:
     del scalings_a
     torch.cuda.empty_cache()
     log(f"phase 10 {time.perf_counter() - t0!r} s")
+    phase11 = run_ot_serving_phase(device)
+    for entry in entries:
+        entry["launches"] += phase11.get(entry["name"], 0)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     entries.append(check_lru_scan_kernel(device))
     entries[-1]["launches"] = run_serving_slice(device, profile_run)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["as_tensor", "make_generator", "resolve_device"]
+__all__ = ["as_tensor", "generator_at", "make_generator", "resolve_device"]
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -44,3 +44,12 @@ def make_generator(device: torch.device, generator=None, seed: int | None = None
     if generator.device.type != device.type:
         raise ValueError(f"generator is on {generator.device}, the data on {device}")
     return generator
+
+
+def generator_at(generator: torch.Generator, state: torch.Tensor) -> torch.Generator:
+    """A new generator on ``generator``'s device set to ``state`` (one of
+    ``generator.get_state()``'s): it replays the draws that ``generator``
+    made from that state on, and keeps its initial seed."""
+    out = torch.Generator(device=generator.device)
+    out.set_state(state)
+    return out

@@ -62,7 +62,7 @@ def method_accepts(method: str, option: str) -> bool:
     return any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()) or option in params
 
 
-def solve(problem: OTProblem, method: str = "dense", **opts) -> Solution:
+def solve(problem: OTProblem, method: str = "dense", *, robust: bool = False, policy=None, **opts) -> Solution:
     """Solve an `OTProblem`/`UOTProblem` with a registered method.
 
     Common options: ``tol``, ``max_iter``, ``certify`` (all eleven
@@ -74,7 +74,18 @@ def solve(problem: OTProblem, method: str = "dense", **opts) -> Solution:
     ``s`` (expected sketch size), and they and ``nys_sink`` take
     ``generator=`` (a `torch.Generator` on the problem's device) or
     ``seed=``; see `repro_torch.core.api.solvers`.
+
+    ``robust=True`` runs the same solve under the self-healing escalation
+    ladder (`repro_torch.robust.solve_robust`) and returns a
+    `repro_torch.robust.RobustSolution`: attempt 0 is this exact solve, so a
+    converged first attempt is bitwise the ``robust=False`` one. ``policy``
+    (an `repro_torch.robust.EscalationPolicy`) tunes the ladder and implies
+    ``robust=True``.
     """
+    if robust or policy is not None:
+        from repro_torch.robust.ladder import solve_robust  # local: the ladder imports this module
+
+        return solve_robust(problem, method, policy=policy, **opts)
     problem.check_valid()
     fn = get_solver(method)
     params = inspect.signature(fn).parameters

@@ -53,9 +53,9 @@ from repro_torch.core.api.registry import register_solver
 from repro_torch.core.api.solution import Solution, SparsePlan, _potentials_from_scalings
 from repro_torch.core.baselines import greenkhorn, nys_sink, screenkhorn_lite
 from repro_torch.core.sinkhorn import (
+    SinkhornResult,
     _masked_log,
     generic_scaling_loop,
-    generic_sparse_log_loop,
     plan_from_potentials,
     plan_from_scalings,
     sinkhorn,
@@ -73,7 +73,7 @@ from repro_torch.core.spar_sink import (
     log_plan_entries,
 )
 from repro_torch.obs.certify import dense_certificate, importance_ess, sparse_certificate
-from repro_torch.obs.trace import sketch_diagnostics
+from repro_torch.obs.trace import SolverTrace, sketch_diagnostics
 
 __all__ = [
     "DEFAULT_TOL",
@@ -277,17 +277,27 @@ def _coo_scaling_loop(problem: OTProblem, sk, tol: float, max_iter: int, trace: 
 
 def _sparse_log_loop(problem: OTProblem, sk, tol: float, max_iter: int, trace: bool | int = False,
                      init: tuple[torch.Tensor, torch.Tensor] | None = None):
-    """Log-domain Sinkhorn on a log-space sketch: sorted segment-logsumexps
-    driven by `generic_sparse_log_loop`. (The reference runs its batched
-    loop at B = 1 here; the two agree at rounding level.)"""
-    eps = float(problem.eps)
-    row_off, col_layout = sparsify.row_offsets(sk), sparsify.col_layout(sk)
-    return generic_sparse_log_loop(
-        lambda g: sparsify.coo_lse_row(sk, g / eps, row_off),
-        lambda f: sparsify.coo_lse_col(sk, f / eps, col_layout),
-        _masked_log(problem.a), _masked_log(problem.b), eps, problem.fe,
-        tol=tol, max_iter=max_iter, trace=trace, init=init,
+    """Log-domain Sinkhorn on a log-space sketch: the batched engine's
+    `repro_torch.batch.solvers.sparse_log_potentials` at B = 1, so a
+    batched ``spar_sink_log`` / ``spar_sink_mf(stabilize=True)`` element and
+    its per-problem solve run one program (`generic_sparse_log_loop` stays
+    the generic closure form of the same iteration)."""
+    from repro_torch.batch.solvers import sparse_log_potentials  # local: the batch package imports this module
+
+    n, m = problem.shape
+    dt, dev = problem.a.dtype, problem.device
+    res = sparse_log_potentials(
+        sk.rows[None], sk.cols[None], sk.logvals[None], sk.csort[None],
+        _masked_log(problem.a)[None], _masked_log(problem.b)[None],
+        torch.tensor([float(problem.eps)], dtype=dt, device=dev), torch.tensor([problem.fe], dtype=dt, device=dev),
+        n=n, m=m, tol=tol, max_iter=max_iter, trace=trace,
+        init=None if init is None else (init[0][None], init[1][None]),
     )
+    f, g, t, err, status = res[:5]
+    tr = None
+    if trace:  # the B = 1 trace sliced to the per-problem shape
+        tr = SolverTrace(res[5].err[0], res[5].marg[0], res[5].n_matvec[0])
+    return SinkhornResult(f[0], g[0], t[0], err[0], status[0], tr)
 
 
 def _is_uot(problem: OTProblem) -> bool:
@@ -335,12 +345,18 @@ def _kernel_cost(Kt: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def _sparse_cert(problem: OTProblem, sk, res, value, c_e, *, log_domain: bool):
-    """Certificate of a sketch solve in O(cap + n): the dense-anchored
-    duality gap through the Horvitz-Thompson kernel entries ``k_e``, and the
-    delta-method CI from the recovered inclusion probabilities (``p*_e =
-    K_e / vals_e``); ``c_e`` are the raw gathered costs. The marginals run
-    over the sketch's sorted rows and its own column layout."""
-    eps = float(problem.eps)
+    """Certificate of a sketch solve in O(cap + n) (`_sketch_cert`)."""
+    return _sketch_cert(sk, res, value, c_e, problem.a, problem.b, float(problem.eps), _problem_lam(problem),
+                        log_domain=log_domain)
+
+
+def _sketch_cert(sk, res, value, c_e, a, b, eps: float, lam: float, *, log_domain: bool):
+    """Certificate of a sketch solve on marginals ``a``, ``b``: the
+    dense-anchored duality gap through the Horvitz-Thompson kernel entries
+    ``k_e``, and the delta-method CI from the recovered inclusion
+    probabilities (``p*_e = K_e / vals_e``); ``c_e`` are the raw gathered
+    costs. The marginals run over the sketch's sorted rows and its own
+    column layout. The batched engine certifies each element through it."""
     if log_domain:
         t_e = log_plan_entries(sk, res, eps)
         f, g = res.u, res.v
@@ -365,10 +381,9 @@ def _sparse_cert(problem: OTProblem, sk, res, value, c_e, *, log_domain: bool):
         K_e = torch.where(torch.isfinite(c_e), torch.exp(-c_e / eps), 0.0)
         p_e = torch.where(alive, torch.clamp(K_e / torch.where(alive, vals, 1.0), 0.0, 1.0), 1.0)
         ess = importance_ess(vals)
-    n, m = problem.shape
     return sparse_certificate(
-        t_e=t_e, c_e=c_e, rows=sk.rows, cols=sk.cols, n=n, m=m, a=problem.a, b=problem.b,
-        f=f, g=g, eps=eps, lam=_problem_lam(problem), value=value, k_e=k_e, p_e=p_e, ess=ess,
+        t_e=t_e, c_e=c_e, rows=sk.rows, cols=sk.cols, n=sk.n, m=sk.m, a=a, b=b,
+        f=f, g=g, eps=eps, lam=lam, value=value, k_e=k_e, p_e=p_e, ess=ess,
         col_layout=sparsify.col_layout(sk),
     )
 

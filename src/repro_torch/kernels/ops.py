@@ -33,6 +33,9 @@ from repro_torch.kernels.ref import (
 __all__ = [
     "LAUNCHES",
     "batched_block_ell_matvec",
+    "batched_coo_logsumexp",
+    "batched_coo_matvec",
+    "batched_coo_rmatvec",
     "block_ell_matvec",
     "block_ell_sketch_matvec",
     "block_ell_sketch_rmatvec",
@@ -373,6 +376,101 @@ def batched_block_ell_matvec(
                          f"(B, nrb, maxb), (B, ncb * Bk); got {tuple(vals.shape)}, "
                          f"{tuple(col_idx.shape)}, {tuple(v.shape)}")
     return _block_ell("batched_block_ell_matvec", vals, col_idx, v, None, bad_index)
+
+
+# ---------------------------------------------------------------------------
+# Batched padded-COO reductions: plain torch on every device (no kernel)
+# ---------------------------------------------------------------------------
+
+
+def batched_offsets(idx: torch.Tensor, n: int, *, indices_are_sorted: bool = False):
+    """The flat layout of B per-element segment reductions: ``(order,
+    offsets)`` of the ``B * n`` segments ``idx[j, e] + j * n``. With
+    per-element ascending ids the flat ids ascend too, and ``order`` is
+    None; otherwise ``order`` is their stable sort. Callers running many
+    reductions over one layout (the batched Sinkhorn loops) compute it once."""
+    from repro_torch.core.sparsify import sorted_offsets
+
+    bsz = idx.shape[0]
+    seg = (idx + (torch.arange(bsz, dtype=idx.dtype, device=idx.device) * n)[:, None]).reshape(-1)
+    order = None
+    if not indices_are_sorted:
+        order = torch.argsort(seg, stable=True)
+        seg = seg[order]
+    return order, sorted_offsets(seg, bsz * n)
+
+
+def _flat(x: torch.Tensor, order) -> torch.Tensor:
+    x = x.reshape(-1)
+    return x if order is None else x[order]
+
+
+def batched_coo_matvec(
+    rows: torch.Tensor,
+    vals: torch.Tensor,
+    v_gathered: torch.Tensor,
+    *,
+    n: int | None = None,
+    indices_are_sorted: bool = False,
+    layout=None,
+) -> torch.Tensor:
+    """B independent padded-COO mat-vec reductions as one flat segment sum.
+
+    ``rows`` is (B, cap) per-element row ids, ``v_gathered`` the gathered
+    right factor ``v.gather(1, cols)`` (callers own the gather, so the
+    transpose direction reuses this reduction). The sum runs over sorted
+    flat segments by `torch.segment_reduce` (never ``index_add_``, whose
+    CUDA atomics add in a varying order): each element's segments hold its
+    own entries in its own order, so the result is bitwise that of B
+    separate `repro_torch.core.sparsify.coo_matvec` calls (on the card too,
+    where each element's slots start at the alignment of its own sketch, as
+    `repro_torch.batch`'s stacked sketches keep them; ``chip_smoke.py``
+    phase 11 checks it). ``layout`` is a precomputed `batched_offsets(rows,
+    n, ...)`. Returns (B, n).
+    """
+    from repro_torch.core.sparsify import segment_sum
+
+    if n is None:
+        raise TypeError("batched_coo_matvec requires n (the output width)")
+    order, offsets = batched_offsets(rows, n, indices_are_sorted=indices_are_sorted) if layout is None else layout
+    return segment_sum(_flat(vals * v_gathered, order), offsets).reshape(rows.shape[0], n)
+
+
+def batched_coo_rmatvec(
+    cols: torch.Tensor,
+    vals: torch.Tensor,
+    u_gathered: torch.Tensor,
+    *,
+    m: int | None = None,
+    indices_are_sorted: bool = False,
+    layout=None,
+) -> torch.Tensor:
+    """Transpose counterpart of `batched_coo_matvec` (segments over
+    columns). For the sorted reduction callers pass the column-sorted
+    permutation of all three arrays (``x.gather(1, csort)``)."""
+    return batched_coo_matvec(cols, vals, u_gathered, n=m, indices_are_sorted=indices_are_sorted, layout=layout)
+
+
+def batched_coo_logsumexp(
+    idx: torch.Tensor,
+    z: torch.Tensor,
+    *,
+    n: int | None = None,
+    indices_are_sorted: bool = False,
+    layout=None,
+) -> torch.Tensor:
+    """B independent padded-COO segment-logsumexps as one flat reduction,
+    the log-domain `batched_coo_matvec`: ``z`` is the per-entry summand
+    ``logvals + y.gather(1, cols)``, ``idx`` the (B, cap) segment ids.
+    Runs the port's one `repro_torch.core.sparsify.segment_logsumexp`, so
+    ``-inf`` entries are inert and empty segments come out exactly
+    ``-inf``. Returns (B, n)."""
+    from repro_torch.core.sparsify import segment_logsumexp
+
+    if n is None:
+        raise TypeError("batched_coo_logsumexp requires n (the output width)")
+    order, offsets = batched_offsets(idx, n, indices_are_sorted=indices_are_sorted) if layout is None else layout
+    return segment_logsumexp(_flat(z, order), offsets).reshape(idx.shape[0], n)
 
 
 def _path_dtype(t: torch.Tensor) -> torch.Tensor:
