@@ -174,9 +174,27 @@ failure exits non-zero):
    `FlakyExecutor` opens, sheds with ``CircuitOpen`` and closes on its
    half-open probe. Phase 11's dispatched, served and per-problem solves add
    their launches to the kernels line.
+12. (run right after phase 8 frees its model) the dense and MoE LM
+   families, which launch no hand kernel: the stable top-k on the card
+   against the CPU's on ties; OLMoE-1B-7B at full width and depth
+   (6,919,100,416 float32 masters drawn on the card); layer 0's MoE on
+   (1, 2048, 2048) float32, card against CPU, for each router (softmax,
+   sinkhorn, spar_sink on the same CPU-drawn uniforms), the probabilities
+   and output held at `MOE_PROBS_TOL`/`MOE_OUT_TOL` on every token that
+   no top-k, capacity or sketch flip touched (the flips counted); a
+   1 x 32768 ``prefill_step`` for each router (warm, then timed; the
+   counts set to 0 just before each call and read just after: none; finite
+   logits, the repeat bitwise equal; peak memory) and the router alone at
+   (1, 32768, 64); one prefill and one batch-8 decode step under the
+   profiler; ``serve`` at batch 8 (32 + 32 tokens) with the sinkhorn and
+   spar_sink routers; then Gemma3-12B cut to its first global period (5
+   local layers, 1 global; 3,358,117,632 parameters), decode against
+   forward in float32 over 1280 tokens, past the 1024 window, at
+   `DECODE_TOL`.
 
 ``--profile`` also runs (a), one prefill, one serving decode step and one
-train step under `torch.profiler` and prints where their device time goes.
+train step of RecurrentGemma under `torch.profiler` and prints where their
+device time goes (phase 12 profiles OLMoE's prefill and decode step always).
 ``--compare-with`` runs no phase but 1: it builds each other source (an
 earlier ``fused_sinkhorn.cu``, ``block_ell.cu``, ``lru_scan.cu`` or
 ``gather_kernel.cu``, or a variant of the current one) apart and times its
@@ -3736,6 +3754,297 @@ def step_kernel_us(fn, markers) -> dict[str, tuple[int, float]]:
     return {m: (len(us), sum(us) / max(len(us), 1)) for m, us in found.items()}
 
 
+# --------------------------------------------------------------------------
+# Phase 12: the dense and MoE LM families (OLMoE-1B-7B at full width)
+# --------------------------------------------------------------------------
+
+#: jax.eval_shape of the reference's init_params: OLMoE-1B-7B, and
+#: Gemma3-12B cut to its first global period (5 local layers, 1 global)
+OLMOE_PARAM_COUNT = 6_919_100_416
+GEMMA3_PERIOD_PARAM_COUNT = 3_358_117_632
+MOE_ROUTERS = ("softmax", "sinkhorn", "spar_sink")
+#: one full-width MoE layer, card against CPU, both float32 (no TF32): the
+#: router's exponent is scores / router_eps = 20 x scores, products of 2048
+#: terms summed in another order on each device (about 1e-6 apart), so a
+#: gate can move by about 1e-4 of itself, and a token's output, sum_e w_e
+#: y_e with |y_e| about 1, by about 1e-4 (also where the sum cancels)
+MOE_LAYER_TOKENS = 2048
+MOE_PROBS_TOL = dict(rtol=1e-3, atol=1e-6)
+MOE_OUT_TOL = dict(rtol=1e-3, atol=1e-4)
+GEMMA3_DECODE_LEN = 1280  # decode against forward past the local layers' 1024 window
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 32, 32
+
+
+class RouterUniforms:
+    """Within the block, the spar_sink router draws ``u`` (moved to the
+    data's device) instead of its generator's uniforms."""
+
+    def __init__(self, u):
+        self.u = u
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.orig = moe._uniforms
+
+        def given(shape, generator, device):
+            check(tuple(shape) == tuple(self.u.shape), f"router draw of {tuple(shape)}, not {tuple(self.u.shape)}")
+            return self.u.to(device)
+
+        moe._uniforms = given
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._uniforms = self.orig
+
+
+def moe_layer_on(layer, x, cfg, u) -> dict:
+    """One MoE layer (``layer``'s parameters, on ``x``'s device) on ``x``
+    with the spar_sink draws ``u``: its router probabilities, the sorted
+    top-k choices, the (B, S, E) kept map, the spar_sink sketch's keep
+    mask, the output and the wall seconds of `moe_ffn`."""
+    import torch
+
+    from repro_torch.models import moe
+
+    s = x.shape[1]
+    cap = max(1, int(cfg.capacity_factor * cfg.experts_per_token * s / cfg.num_experts))
+    with torch.no_grad(), RouterUniforms(u):
+        probs = moe._router_probs(layer, x, cfg, None)
+        topk_idx, _, keep_idx = moe._route(probs, cfg, cap)
+        kept = torch.zeros((x.shape[0], cfg.num_experts, s), device=x.device).scatter_(2, keep_idx, 1.0) > 0
+        scores = (x @ layer["router"]["w"]).float()
+        sketch = moe._spar_sink_log_kernel((scores - scores.amax(-1, keepdim=True)) / cfg.router_eps, cfg,
+                                           u.to(x.device))
+        if x.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, aux = moe.moe_ffn(layer, x, cfg)
+        if x.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    return dict(probs=probs.cpu(), topk=torch.sort(topk_idx, -1).values.cpu(), kept=kept.transpose(1, 2).cpu(),
+                keep_mask=(sketch > -1e30).cpu(), out=out.cpu(), aux=float(aux), wall_s=wall_s)
+
+
+def full_width_moe_layer(params, cfg, device) -> None:
+    """Phase 12 (2): layer 0's ``moe_ffn`` at full width on (1, 2048, 2048)
+    float32, card against CPU, each router, the same parameters and (for
+    spar_sink) the same uniforms drawn on the CPU. A token whose top-k
+    choice, kept slots or sketch row differ between the devices (a flip on
+    a near-tie) is counted and left out; the others are held."""
+    import torch
+
+    from repro_torch.tree import tree_map
+
+    layer = params["blocks"][0]["ffn"]
+    host_layer = tree_map(lambda t: t.cpu(), layer)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((1, MOE_LAYER_TOKENS, cfg.d_model), generator=gen)
+    u = torch.rand((1, MOE_LAYER_TOKENS, cfg.num_experts), generator=gen)
+    for router in MOE_ROUTERS:
+        c = cfg.replace(router=router, dtype="float32")
+        card = moe_layer_on(layer, x.to(device), c, u)
+        host = moe_layer_on(host_layer, x, c, u)
+        touched = (card["topk"] != host["topk"]).any(-1) | (card["kept"] != host["kept"]).any(-1)
+        if router == "spar_sink":
+            touched |= (card["keep_mask"] != host["keep_mask"]).any(-1)
+        held = ~touched
+        torch.testing.assert_close(card["probs"][held], host["probs"][held], **MOE_PROBS_TOL)
+        torch.testing.assert_close(card["out"][held], host["out"][held], **MOE_OUT_TOL)
+        row = dict(router=router, shape=list(x.shape), touched_tokens=int(touched.sum()),
+                   probs_max_abs_err=_max_abs_err(card["probs"][held], host["probs"][held]),
+                   out_max_abs_err=_max_abs_err(card["out"][held], host["out"][held]),
+                   max_abs_out=float(host["out"].abs().max()), aux_card=card["aux"], aux_cpu=host["aux"],
+                   kept_entries=int(card["keep_mask"].sum()) if router == "spar_sink" else None,
+                   card_wall_s=card["wall_s"], cpu_wall_s=host["wall_s"])
+        log("phase 12 moe layer " + json.dumps(row))
+        check(int(touched.sum()) <= MOE_LAYER_TOKENS // 100, f"phase 12 moe layer {router}: {int(touched.sum())} "
+              f"tokens routed otherwise on the card")
+    del host_layer
+
+
+def check_stable_top_k(device) -> None:
+    """Phase 12: `moe._top_k` on the card puts the lower index first among
+    ties, as on the CPU (and as ``jax.lax.top_k``): 600 entries of 0.125
+    among 4096 zeros, and gates of the prefill's shape (1, 64, 32768) with
+    most entries exactly 0."""
+    import torch
+
+    from repro_torch.models import moe
+
+    gen = torch.Generator().manual_seed(4)
+    x = torch.zeros(4096)
+    x[torch.randperm(4096, generator=gen)[:600]] = 0.125
+    gates = torch.where(torch.rand((1, 64, PREFILL_LEN), generator=gen) < 0.1, 0.125, 0.0)
+    for label, t, k in (("4096 entries", x, 1024), ("gates (1, 64, 32768)", gates, 5120)):
+        card_v, card_i = moe._top_k(t.to(device), k)
+        host_v, host_i = moe._top_k(t, k)
+        check(torch.equal(card_i.cpu(), host_i) and torch.equal(card_v.cpu(), host_v),
+              f"phase 12: the stable top-k on the card differs from the CPU's on {label}")
+    log("phase 12: the stable top-k keeps the lower index first among ties on the card, as on the CPU")
+
+
+def olmoe_prefill(params, cfg, device, tokens) -> dict:
+    """Phase 12 (3): ``prefill_step`` on 1 x PREFILL_LEN tokens for each
+    router, a warm call and a timed one, counts set to 0 just before each
+    and read just after (no hand kernel may run), logits finite and the
+    repeat bitwise equal; and the router alone at (1, PREFILL_LEN, E)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import prefill_step
+    from repro_torch.models import moe
+
+    walls = {}
+    for router in MOE_ROUTERS:
+        c = cfg.replace(router=router)
+        outs = []
+        for run in ("warm", "timed"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits = prefill_step(params, tokens, c)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+            log("phase 12 prefill " + json.dumps(dict(
+                arch=cfg.name, router=router, run=run, batch=1, seq=tokens.shape[1], wall_s=wall_s,
+                tokens_per_s=tokens.shape[1] / wall_s, peak_device_bytes=torch.cuda.max_memory_allocated(device),
+                launches=counts)))
+            check(not counts, f"phase 12 prefill {router}: hand kernels launched {counts}")
+            check(tuple(logits.shape) == (1, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+                  f"phase 12 prefill {router}: logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+            outs.append(logits)
+        check(torch.equal(outs[0], outs[1]), f"phase 12 prefill {router}: a repeat is not bitwise equal")
+        walls[router] = wall_s
+        gen = torch.Generator(device=device).manual_seed(5)
+        scores = torch.randn((1, tokens.shape[1], cfg.num_experts), device=device, generator=gen)
+        if router == "softmax":
+            router_ms = time_ms(lambda: torch.softmax(scores, dim=-1), warmup=2, reps=10)
+        else:
+            router_ms = time_ms(lambda: moe.sinkhorn_router_probs(scores, c, None), warmup=2, reps=10)
+        log(f"phase 12 prefill {router}: next token {int(torch.argmax(outs[1]))}, logits in "
+            f"[{float(outs[1].min())!r}, {float(outs[1].max())!r}], bitwise equal on the repeat; the router alone "
+            f"at {tuple(scores.shape)}: {router_ms!r} ms, {cfg.num_layers} layers "
+            f"{cfg.num_layers * router_ms / 1e3 / wall_s!r} of the timed prefill")
+        del outs, logits, scores
+    return walls
+
+
+def olmoe_serve(params, cfg, device) -> None:
+    """Phase 12 (4): ``serve`` at batch 8, 32 prompt and 32 generated
+    tokens (bf16), with the sinkhorn and spar_sink routers."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+
+    for router in ("sinkhorn", "spar_sink"):
+        c = cfg.replace(router=router)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        seqs = serve(c, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN, seed=0, device=device,
+                     params=params)
+        wall_s = time.perf_counter() - t0
+        counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+        steps = SERVE_PROMPT + SERVE_GEN - 1
+        log("phase 12 serve " + json.dumps(dict(
+            arch=cfg.name, router=router, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN, wall_s=wall_s,
+            tokens_per_s=seqs.size / wall_s, ms_per_step=wall_s / steps * 1e3,
+            peak_device_bytes=torch.cuda.max_memory_allocated(device), launches=counts)))
+        check(seqs.shape == (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
+              and bool(((seqs >= 0) & (seqs < cfg.vocab_size)).all()), f"phase 12 serve {router}: served tokens")
+        check(not counts, f"phase 12 serve {router}: hand kernels launched {counts}")
+
+
+def gemma3_period(device) -> None:
+    """Phase 12 (5): Gemma3-12B cut to its first global period at full
+    width, float32: decode against forward over GEMMA3_DECODE_LEN tokens."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import decode_step, forward, init_decode_state, init_params, layer_windows, param_count
+
+    cfg = configs.get("gemma3_12b").replace(num_layers=6, dtype="float32")
+    check(layer_windows(cfg) == [cfg.sliding_window] * 5 + [0], f"gemma3 windows {layer_windows(cfg)}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    torch.cuda.synchronize()
+    count = param_count(params)
+    log(f"phase 12: {cfg.name} cut to 6 layers (windows {layer_windows(cfg)}), {count} float32 parameters "
+        f"({count * 4} bytes) drawn on the card in {time.perf_counter() - t0!r} s")
+    check(count == GEMMA3_PERIOD_PARAM_COUNT, f"gemma3 6-layer parameter count {count}")
+    gen = torch.Generator(device=device).manual_seed(6)
+    prompt = torch.randint(0, cfg.vocab_size, (1, GEMMA3_DECODE_LEN), device=device, generator=gen)
+    with torch.no_grad():
+        ref, _ = forward(params, prompt, cfg)
+        state = init_decode_state(cfg, 1, GEMMA3_DECODE_LEN, dtype=torch.float32, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = []
+        for i in range(GEMMA3_DECODE_LEN):
+            lg, state = decode_step(params, state, prompt[:, i:i + 1], i, cfg)
+            outs.append(lg)
+        dec = torch.cat(outs, dim=1)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / GEMMA3_DECODE_LEN * 1e3
+    torch.testing.assert_close(dec, ref, **DECODE_TOL)
+    w = cfg.sliding_window
+    log(f"phase 12: gemma3 decode against forward, float32, {GEMMA3_DECODE_LEN} tokens: max_abs_err "
+        f"{_max_abs_err(dec, ref)!r} (max |logit| {float(ref.abs().max())!r}); past the window (positions >= {w}) "
+        f"{_max_abs_err(dec[:, w:], ref[:, w:])!r}; {step_ms!r} ms a step")
+    del params, state, ref, dec, outs
+
+
+def run_lm_families_phase(device) -> None:
+    """Phase 12, after phase 8 has freed its state: OLMoE-1B-7B at full
+    width and depth (random float32 masters drawn on the card), its MoE
+    layer card against CPU, prefill and serve per router; then Gemma3's
+    first global period."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import prefill_step
+    from repro_torch.models import decode_step, init_decode_state, init_params, param_count
+
+    t_phase = time.perf_counter()
+    check_stable_top_k(device)
+    cfg = configs.get("olmoe_1b_7b")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    torch.cuda.synchronize()
+    count = param_count(params)
+    log(f"phase 12: {cfg.name} full width and depth ({cfg.num_layers} layers, {cfg.num_experts} experts top-"
+        f"{cfg.experts_per_token}, router {cfg.router!r}), {count} float32 parameters ({count * 4} bytes) drawn on "
+        f"the card in {time.perf_counter() - t0!r} s")
+    check(count == OLMOE_PARAM_COUNT, f"olmoe parameter count {count}")
+    full_width_moe_layer(params, cfg, device)
+    tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_LEN), device=device,
+                           generator=torch.Generator(device=device).manual_seed(7))
+    olmoe_prefill(params, cfg, device, tokens)
+    profile_call(f"olmoe prefill 1 x {PREFILL_LEN} (sinkhorn)", lambda: prefill_step(params, tokens, cfg))
+    del tokens
+    torch.cuda.empty_cache()
+    olmoe_serve(params, cfg, device)
+    state = init_decode_state(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, device=device)
+    step_tokens = torch.zeros((SERVE_BATCH, 1), dtype=torch.int64, device=device)
+    with torch.no_grad():
+        decode_step(params, state, step_tokens, 0, cfg)
+        profile_call(f"olmoe decode step, batch {SERVE_BATCH}", lambda: decode_step(params, state, step_tokens, 1, cfg))
+    del params, state
+    torch.cuda.empty_cache()
+    gemma3_period(device)
+    torch.cuda.empty_cache()
+    log(f"phase 12 {time.perf_counter() - t_phase!r} s")
+
+
 def profile_solve(label: str, problem, **opts) -> None:
     """Run one warm ``solve`` under `torch.profiler` and print where its
     device time goes (`profile_call`)."""
@@ -3945,6 +4254,7 @@ def main() -> int:
     entries.append(check_lru_scan_bwd_kernel(device))
     entries[-1]["launches"] = run_training_slice(device, profile_run)
     log(f"training slice phase {time.perf_counter() - t0!r} s")
+    run_lm_families_phase(device)
     for entry in entries:
         check(entry["launches"] > 0, f"{entry['name']} was not launched on its path")
     if profile_run:

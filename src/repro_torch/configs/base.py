@@ -4,9 +4,11 @@ The port's own copy of the reference's ``repro.configs.base`` (pure
 Python, so it is copied, not imported): `ModelConfig` with every field and
 default, `SHAPES`, `ARCH_IDS` and `get`. Each ported architecture has one
 module in this package defining ``CONFIG`` (the published numbers) and
-``SMOKE`` (a reduced config of the same family for CPU tests). Only
-``recurrentgemma_2b`` is ported so far; `get` raises `KeyError` for the
-others. `TrainConfig` holds a training run's settings, with the
+``SMOKE`` (a reduced config of the same family for CPU tests). Seven
+are ported: the ``hybrid`` RecurrentGemma, the ``dense`` Qwen3, StableLM,
+StarCoder2 and Gemma3, and the ``moe`` OLMoE and Llama-4-Scout; `get`
+raises `KeyError` for the ``ssm``, ``vlm`` and ``audio`` ones (ROADMAP
+A-11). `TrainConfig` holds a training run's settings, with the
 reference's fields and defaults.
 """
 from __future__ import annotations
@@ -32,7 +34,15 @@ ARCH_IDS = (
 )
 
 # the architectures whose config module the port has (ROADMAP A-11)
-_PORTED = ("recurrentgemma_2b",)
+_PORTED = (
+    "olmoe_1b_7b",
+    "llama4_scout_17b_a16e",
+    "qwen3_14b",
+    "stablelm_3b",
+    "starcoder2_7b",
+    "gemma3_12b",
+    "recurrentgemma_2b",
+)
 
 # input shapes assigned to the LM family (seq_len, global_batch, kind)
 SHAPES: dict[str, tuple[int, int, str]] = {

@@ -148,16 +148,33 @@ def block_ell_sketch_from_numpy(
     return _for_cuda(layout(vals, col_idx, nblocks, n, m, layout(vals_t, col_idx_t, nblocks_t, m, n)))
 
 
+def _unstack(tree, n: int, path: str) -> list:
+    """A tree whose leaves have a leading layer axis of ``n`` as ``n``
+    trees, one a layer (the reference's ``vmap``-stacked blocks)."""
+    if isinstance(tree, dict):
+        per_key = {k: _unstack(v, n, f"{path}/{k}") for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    arr = np.asarray(tree)
+    if arr.ndim == 0 or arr.shape[0] != n:
+        raise ValueError(f"{path}: shape {tuple(arr.shape)}, expected a leading layer axis of {n}")
+    return list(arr)
+
+
 def lm_params_from_numpy(tree, cfg, device=None):
     """The port's LM parameters from the reference's parameter pytree with
-    numpy leaves (``jax.tree.map(np.asarray, params)``): the ``blocks``
-    list of RG-LRU and attention dicts, ``embed``, ``unembed`` and
-    ``final_norm``, each leaf as a ``cfg.param_dtype`` tensor on ``device``
-    (``None`` means ``"cuda"``). Every key and shape is checked against
-    the port's own layout for ``cfg``; a missing or extra key, a wrong
-    block count or a wrong shape raises `ValueError`."""
+    numpy leaves (``jax.tree.map(np.asarray, params)``): ``embed``,
+    ``unembed``, ``final_norm`` and the ``blocks``, each leaf as a
+    ``cfg.param_dtype`` tensor on ``device`` (``None`` means ``"cuda"``).
+    The hybrid family's blocks are a list of RG-LRU and attention dicts in
+    both packages; the dense and moe families' are one dict whose leaves
+    are stacked along a leading layer axis, which is split into the port's
+    list of per-layer dicts. Every key and shape is checked against the
+    port's own layout for ``cfg``; a missing or extra key, a wrong block
+    count, a wrong layer axis or a wrong shape raises `ValueError`."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
+    if cfg.family in ("dense", "moe") and isinstance(tree, dict) and isinstance(tree.get("blocks"), dict):
+        tree = dict(tree, blocks=_unstack(tree["blocks"], cfg.num_layers, "params/blocks"))
 
     def convert(expected, given, path):
         if isinstance(expected, torch.Tensor):

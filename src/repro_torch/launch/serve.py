@@ -7,8 +7,11 @@ The counterpart of the reference's ``repro.launch.serve`` (the decode
 loop) and of the prefill step of ``repro.launch.specs`` (next-token logits
 of the last position of a whole prompt, the ``prefill_32k`` cell's step).
 As in the reference, `serve` feeds the prompt token by token through
-``decode_step`` and then decodes greedily. Runs on the card unless
-``device`` names the CPU; with no card, ``device=None`` raises.
+``decode_step`` and then decodes greedily. Both serve every ported family
+(``dense``, ``moe``, ``hybrid``; ``--arch olmoe_1b_7b:smoke``, say); the
+MoE routers' draws come from generators seeded 0, as the reference's come
+from ``PRNGKey(0)``. Runs on the card unless ``device`` names the CPU;
+with no card, ``device=None`` raises.
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
-"""Model zoo: the port's functional LM (the hybrid family so far)."""
+"""Model zoo: the port's functional LM (the dense, moe and hybrid families)."""
 from repro_torch.models.lm import (
     decode_step,
     forward,
     init_decode_state,
     init_params,
+    layer_windows,
     loss_fn,
     param_count,
 )
@@ -13,6 +14,7 @@ __all__ = [
     "forward",
     "init_decode_state",
     "init_params",
+    "layer_windows",
     "loss_fn",
     "param_count",
 ]

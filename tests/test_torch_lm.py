@@ -88,12 +88,25 @@ def test_config_matches_the_reference():
     assert configs.SHAPES == jconfigs.SHAPES and configs.ARCH_IDS == jconfigs.ARCH_IDS
 
 
-@pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS if a != "recurrentgemma_2b"] + ["no_such_arch"])
+@pytest.mark.parametrize("arch", ["mamba2_130m", "llama32_vision_11b", "whisper_large_v3", "no_such_arch"])
 def test_get_of_an_unported_architecture_raises(arch):
     with pytest.raises(KeyError, match="not ported yet" if arch != "no_such_arch" else "unknown arch"):
         configs.get(arch)
     with pytest.raises(KeyError):
         configs.get(arch + ":smoke")
+
+
+@pytest.mark.parametrize(
+    "arch", ["olmoe_1b_7b", "llama4_scout_17b_a16e", "qwen3_14b", "stablelm_3b", "starcoder2_7b", "gemma3_12b"]
+)
+def test_get_of_a_ported_architecture_matches_the_reference(arch):
+    for name in (arch, arch + ":smoke"):
+        j, t = jconfigs.get(name), configs.get(name)
+        assert {f: getattr(t, f) for f in t.__dataclass_fields__} == {
+            f: getattr(j, f) for f in j.__dataclass_fields__
+        }
+        assert (t.q_dim, t.kv_dim, t.is_moe) == (j.q_dim, j.kv_dim, j.is_moe)
+        assert t.family in ("dense", "moe") and t.is_moe == (t.family == "moe")
 
 
 # --------------------------------------------------------------------------
@@ -327,7 +340,7 @@ def test_full_config_parameter_count_on_meta():
 
 
 def test_other_families_are_not_ported():
-    cfg = configs.get(ARCH).replace(family="dense")
+    cfg = configs.get(ARCH).replace(family="ssm")
     for call in (lambda: lm.init_params(cfg, 0, device="meta"), lambda: lm.forward({}, torch.zeros((1, 2), dtype=torch.long), cfg)):
         with pytest.raises(NotImplementedError, match="A-11"):
             call()
