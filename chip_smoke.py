@@ -191,6 +191,21 @@ failure exits non-zero):
    local layers, 1 global; 3,358,117,632 parameters), decode against
    forward in float32 over 1280 tokens, past the 1024 window, at
    `DECODE_TOL`.
+13. (run right after phase 12) the paper's applications through
+   ``examples_torch/``, which launch no hand kernel (the counts, set to 0
+   just before, stay 0): Table 1 at EchoNet-Dynamic's 112 x 112 frames
+   (bench_echo's --full recipe at stride 1: panel (a) n = 12544, s =
+   1,591,811; panel (b) 2 x 2 pooled, n = 3136), `sinkhorn`, `spar_sink`
+   and `rand_sink` on `TABLE1_VIDEOS` videos, with errors, seconds a
+   video and a distance, iterations, statuses, peak memory and the
+   speedup; video 0's sinkhorn distances repeated bitwise, one pooled
+   pair on the CPU in float64 against the card's (`ECHO_CPU_RTOL`) and
+   its spar_sink mean over `ECHO_BAND_SEEDS` seeds within `ECHO_BAND`; one
+   distance of each method under the profiler; the cardiac-cycle matrix
+   and its MDS at 112 x 112 (`MDS_FRAMES`, `MDS_STRIDE`); quickstart,
+   color_transfer, barycenter, batch_serving (bitwise) and ssae (finite
+   loss) at their defaults; the MoE trainer's `HUNDRED_M` at 1 x 8 x 512
+   for `MOE_STEPS` steps with each router (its loss falls).
 
 ``--profile`` also runs (a), one prefill, one serving decode step and one
 train step of RecurrentGemma under `torch.profiler` and prints where their
@@ -4045,6 +4060,301 @@ def run_lm_families_phase(device) -> None:
     log(f"phase 12 {time.perf_counter() - t_phase!r} s")
 
 
+# --------------------------------------------------------------------------
+# Phase 13: the paper's applications (examples_torch/), no hand kernel
+# --------------------------------------------------------------------------
+
+#: Table 1 at EchoNet-Dynamic's frame size: bench_echo's --full recipe
+#: (30 frames, period 10 + 2 (v mod 3), arrhythmia 0.2 on odd v, eps 0.01,
+#: lam 0.5, eta 0.1, s = 16 s0(n), 2 sketch seeds a distance) at stride 1;
+#: panel (a) n = 12544, panel (b) 2 x 2 mean-pooled, n = 3136
+ECHO_SIZE, ECHO_S_MULT = 112, 16
+TABLE1_VIDEOS = {"orig": 3, "pooled": 10}
+#: the band of tests/test_system.py::test_spar_sink_wfr_matches_dense_wfr
+ECHO_BAND, ECHO_BAND_SEEDS, ECHO_CPU_RTOL = 0.25, 8, 1e-10
+#: the cardiac-cycle matrix: one subject's first frames at 112 x 112
+MDS_FRAMES, MDS_STRIDE = 12, 1
+#: the examples run at their reference defaults
+EXAMPLE_DEFAULTS = ("quickstart", "color_transfer", "barycenter", "batch_serving", "ssae")
+MOE_STEPS = 30
+
+
+def load_example(name: str):
+    """``examples_torch/<name>.py`` as a module (the folder is no package)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples_torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name: str, argv: list[str]):
+    """Run one example's ``main(argv)`` on the card, its output echoed and
+    kept: ``(result, printed text, synced seconds)``."""
+    import contextlib
+    import io
+
+    import torch
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = load_example(name).main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log(f"phase 13 {name}| {line}")
+    return result, buf.getvalue(), seconds
+
+
+def table1_panel(echo, panel: str, method: str, device) -> dict:
+    """One method on one panel of Table 1: a `Prediction` a video, timed
+    (synced) and with the panel's peak device memory. A solve that ends
+    ``non_finite`` is printed and diagnosed (`diagnose_non_finite`); a
+    distance that is not finite passes only where C-11 explains each of
+    its ``non_finite`` solves, and its video's prediction counts as failed
+    (``videos_failed``), its error left out of the mean."""
+    import collections
+
+    import torch
+
+    pooled = panel == "pooled"
+    preds, video_s = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for v in range(TABLE1_VIDEOS[panel]):
+        video, t_es, t_ed = echo.table1_video(v, ECHO_SIZE, pooled)
+        t0 = time.perf_counter()
+        preds.append(echo.predict_ed(video, t_es, t_ed, method, (0, v), 1, ECHO_S_MULT, device=device))
+        torch.cuda.synchronize()
+        video_s.append(time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated(device)
+    solves = [(v, t, i, n_iter, st) for v, p in enumerate(preds) for t, rep in p.solves.items()
+              for i, (n_iter, st) in enumerate(rep)]
+    iters = [n_iter for *_, n_iter, _ in solves]
+    statuses = collections.Counter(st for *_, st in solves)
+    dists = [d for p in preds for d in p.dists.values()]
+    dist_s = [sec for p in preds for sec in p.seconds.values()]
+    errors = [p.error for p in preds if p.t_hat is not None]
+    n = (ECHO_SIZE // (2 if pooled else 1)) ** 2
+    row = dict(panel=panel, method=method, n=n, s=ECHO_S_MULT * echo.s0(n), videos=len(preds),
+               videos_failed=[v for v, p in enumerate(preds) if p.t_hat is None],
+               error_mean=statistics.fmean(errors) if errors else None,
+               error_std=statistics.pstdev(errors) if errors else None, errors=errors,
+               t_hat=[p.t_hat for p in preds], s_per_video=statistics.fmean(video_s),
+               s_per_distance=statistics.fmean(dist_s), distances=len(dists),
+               non_finite_distances=sum(not math.isfinite(d) for d in dists),
+               n_iter_mean=statistics.fmean(iters), n_iter_min=min(iters), n_iter_max=max(iters),
+               statuses=dict(statuses), peak_device_bytes=peak)
+    log("phase 13 table1 " + json.dumps(row))
+    explained = set()
+    for v, t, i, n_iter, st in solves:
+        if st == "non_finite":
+            log(f"phase 13 table1 {panel} {method}: finding: video {v}, frame {t}, seed {i} ended non_finite "
+                f"at iteration {n_iter}")
+            if diagnose_non_finite(echo, pooled, v, t, i, n_iter, method, device):
+                explained.add((v, t))
+    for v, p in enumerate(preds):
+        for t, d in p.dists.items():
+            check(math.isfinite(d) or (v, t) in explained,
+                  f"phase 13 table1 {panel} {method}: video {v}, frame {t}: distance {d} is not finite "
+                  f"and C-11 does not explain it")
+    return dict(row, preds=preds)
+
+
+def diagnose_non_finite(echo, pooled: bool, v: int, t: int, i: int, n_iter: int, method: str, device) -> bool:
+    """Draw one Table-1 sketch again on the card (video ``v``'s ES frame
+    against frame ``t``, seed ``i``), count its denormal values, and run
+    its loop on the CPU on a copy, once with denormals kept (as torch keeps
+    them on the CPU and the card) and once flushed (as the reference's CPU
+    runs flush them). C-11 explains the solve when the card's run of the
+    sketch reproduces it (``non_finite`` at iteration ``n_iter``), the
+    kept run ends ``non_finite`` and the flushed one does not."""
+    import torch
+
+    from repro_torch.core import Geometry, UOTProblem, uniform_probs
+    from repro_torch.core.api import solvers as api_solvers
+
+    video, t_es, _ = echo.table1_video(v, ECHO_SIZE, pooled)
+    a, pts = echo.frame_measure(video[t_es], 1, device)
+    b, _ = echo.frame_measure(video[t], 1, device)
+    C = echo.wfr_cost(torch.as_tensor(pts, device=device), eta=echo.ETA)
+    n = pts.shape[0]
+    s = ECHO_S_MULT * echo.s0(n)
+    problem = UOTProblem(Geometry(C), a, b, echo.EPS, lam=echo.LAM)
+    probs = uniform_probs(n, n, C.dtype, device=device) if method == "rand_sink" else None
+    sk = api_solvers.build_coo_sketch(problem, echo.generator(device, 0, v, t, i), s, probs=probs)
+    card = api_solvers._spar_sink_coo_on(problem, sk, 1e-7, 2000)
+    tiny = torch.finfo(sk.vals.dtype).tiny
+    denormal = int(((sk.vals != 0) & (sk.vals.abs() < tiny)).sum())
+    cpu_problem = UOTProblem(Geometry(C.cpu()), a.cpu(), b.cpu(), echo.EPS, lam=echo.LAM)
+    cpu_sk = sk._replace(**{f: getattr(sk, f).cpu() for f in sk._fields if isinstance(getattr(sk, f), torch.Tensor)})
+    del problem, C, probs, sk
+    torch.cuda.empty_cache()
+    runs = {}
+    for flush in (False, True):
+        torch.set_flush_denormal(flush)
+        try:
+            sol = api_solvers._spar_sink_coo_on(cpu_problem, cpu_sk, 1e-7, 2000)
+        finally:
+            torch.set_flush_denormal(False)
+        runs["flushed" if flush else "kept"] = (sol.status_label, int(sol.n_iter), float(sol.value))
+    reproduced = card.status_label == "non_finite" and int(card.n_iter) == n_iter
+    explained = reproduced and runs["kept"][0] == "non_finite" and runs["flushed"][0] != "non_finite"
+    log("phase 13 non_finite diagnosis " + json.dumps(dict(
+        video=v, pooled=pooled, frame=t, seed=i, method=method, nnz=int(cpu_sk.nnz), denormal_values=denormal,
+        card=(card.status_label, int(card.n_iter), float(card.value)), reproduced=reproduced, cpu=runs,
+        c11_explains=explained)))
+    return explained
+
+
+def table1_checks(echo, device, first_video: dict) -> None:
+    """Phase 13 (1)'s checks beside the table: the first video's sinkhorn
+    distances repeat bitwise; one panel-(b) sinkhorn distance on the CPU
+    in float64 against the card's; that pair's spar_sink mean over
+    `ECHO_BAND_SEEDS` seeds within `ECHO_BAND` of it."""
+    import torch
+
+    video, t_es, t_ed = echo.table1_video(0, ECHO_SIZE)
+    again = echo.predict_ed(video, t_es, t_ed, "sinkhorn", (0, 0), 1, ECHO_S_MULT, device=device)
+    check(again.dists == first_video["orig"].dists,
+          "phase 13: the sinkhorn distances of video 0 (n = 12544) do not repeat bitwise")
+    log(f"phase 13: video 0's {len(again.dists)} sinkhorn distances at n = 12544 repeat bitwise")
+    pred = first_video["pooled"]
+    video, t_es, _ = echo.table1_video(0, ECHO_SIZE, pooled=True)
+    t = pred.t_hat
+    got = {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        a, pts = echo.frame_measure(video[t_es], 1, dev)
+        b, _ = echo.frame_measure(video[t], 1, dev)
+        C = echo.wfr_cost(torch.as_tensor(pts, device=dev), eta=echo.ETA)
+        s = ECHO_S_MULT * echo.s0(pts.shape[0])
+        t0 = time.perf_counter()
+        got[where], solves = echo.echo_distance(a, b, C, "sinkhorn", (0, 0, t), s)
+        log(f"phase 13: pooled video 0, frames {t_es} -> {t}, sinkhorn on the {where}: {got[where]!r} "
+            f"({solves}, {time.perf_counter() - t0!r} s)")
+        if where == "card":
+            check(got["card"] == pred.dists[t], "phase 13: the pooled pair's sinkhorn distance did not repeat")
+            sparse, solves = echo.echo_distance(a, b, C, "spar_sink", (0, 0, t), s, n_seeds=ECHO_BAND_SEEDS)
+            rel_sparse = abs(sparse - got["card"]) / abs(got["card"])
+            log(f"phase 13: that pair's spar_sink mean over {ECHO_BAND_SEEDS} seeds {sparse!r}, relative to "
+                f"sinkhorn {rel_sparse!r} (statuses {sorted(set(st for _, st in solves))})")
+            check(rel_sparse < ECHO_BAND, f"phase 13: spar_sink {rel_sparse} outside the band {ECHO_BAND}")
+        del a, b, C
+    rel = abs(got["card"] - got["cpu"]) / abs(got["cpu"])
+    log(f"phase 13: card against CPU float64, relative {rel!r}")
+    check(rel <= ECHO_CPU_RTOL, f"phase 13: the card's sinkhorn distance is {rel} from the CPU's")
+
+
+def profile_table1(echo, device) -> None:
+    """One Table-1 distance of each method at n = 12544 under the profiler
+    (video 0's ES frame against its ED frame)."""
+    import torch
+
+    video, t_es, t_ed = echo.table1_video(0, ECHO_SIZE)
+    a, pts = echo.frame_measure(video[t_es], 1, device)
+    b, _ = echo.frame_measure(video[t_ed], 1, device)
+    C = echo.wfr_cost(torch.as_tensor(pts, device=device), eta=echo.ETA)
+    s = ECHO_S_MULT * echo.s0(pts.shape[0])
+    for method in echo.TABLE1_METHODS:
+        run = lambda: echo.echo_distance(a, b, C, method, (0, 0, t_ed), s)
+        run()
+        profile_call(f"table1 distance n={pts.shape[0]} ({method})", run)
+
+
+def cardiac_cycle_matrix(echo, device) -> None:
+    """Phase 13 (2): `wfr_matrix` and `classical_mds` for the healthy
+    subject's first `MDS_FRAMES` frames at 112 x 112."""
+    import numpy as np
+    import torch
+
+    video, t_ed, t_es = echo.synth_echo_video(n_frames=MDS_FRAMES, size=ECHO_SIZE, period=10,
+                                              seed=echo.SUBJECT_SEEDS["healthy"], **echo.SUBJECTS["healthy"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    D = echo.wfr_matrix(video, (0, 0), MDS_STRIDE, device)
+    wall = time.perf_counter() - t0
+    xy = echo.classical_mds(D)
+    radius = np.linalg.norm(xy - xy.mean(0), axis=1)
+    pairs = MDS_FRAMES * (MDS_FRAMES - 1) // 2
+    log("phase 13 cardiac cycle " + json.dumps(dict(
+        subject="healthy", frames=MDS_FRAMES, stride=MDS_STRIDE, n=(ECHO_SIZE // MDS_STRIDE) ** 2, ED=t_ed, ES=t_es,
+        mean_wfr=float(D[D > 0].mean()), mds_radius_mean=float(radius.mean()), mds_radius_std=float(radius.std()),
+        s_per_pair=wall / pairs, seconds=wall, peak_device_bytes=torch.cuda.max_memory_allocated(device))))
+    check(bool(np.all(np.isfinite(D))) and np.array_equal(D, D.T), "phase 13: the WFR matrix")
+
+
+def moe_trainer(device) -> None:
+    """Phase 13 (4): the example trainer's full-size config for
+    `MOE_STEPS` steps with each router, each in a fresh directory."""
+    import tempfile
+
+    import torch
+
+    for router in MOE_ROUTERS:
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.reset_peak_memory_stats(device)
+            out, text, seconds = run_example("train_moe_sinkhorn", [
+                "--hundred-m", "--steps", str(MOE_STEPS), "--router", router, "--out-dir", tmp])
+        history = dict(out["history"])
+        tok_s = [float(m) for m in re.findall(r"tok/s ([\d,.]+)", text.replace(",", ""))]
+        first, last = history[0]["loss"], history[MOE_STEPS - 1]["loss"]
+        log("phase 13 train_moe_sinkhorn " + json.dumps(dict(
+            router=router, steps=MOE_STEPS, seq_len=512, batch=8, loss_first=first, loss_last=last,
+            loop_tokens_per_s=tok_s[-1], s_per_step_loop=512 * 8 / tok_s[-1], seconds=seconds,
+            peak_device_bytes=torch.cuda.max_memory_allocated(device))))
+        check(math.isfinite(first) and math.isfinite(last) and last < first,
+              f"phase 13 train_moe_sinkhorn {router}: loss {first} -> {last}")
+        del out
+        torch.cuda.empty_cache()
+
+
+def run_applications_phase(device) -> None:
+    """Phase 13: Table 1 at 112 x 112, the cardiac-cycle matrix, the
+    examples at their defaults and the MoE trainer at full size, all on
+    torch ops: the launch counts, set to 0 just before, stay 0."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    echo = load_example("echocardiogram")
+    rows, first_video = [], {}
+    for panel in ("orig", "pooled"):
+        for method in echo.TABLE1_METHODS:
+            row = table1_panel(echo, panel, method, device)
+            if method == "sinkhorn":
+                first_video[panel] = row["preds"][0]
+            rows.append(row)
+        by = {r["method"]: r for r in rows if r["panel"] == panel}
+        log(f"phase 13 table1 {panel}: spar_sink's speedup over sinkhorn a distance "
+            f"{by['sinkhorn']['s_per_distance'] / by['spar_sink']['s_per_distance']!r}, rand_sink's "
+            f"{by['sinkhorn']['s_per_distance'] / by['rand_sink']['s_per_distance']!r}")
+    table1_checks(echo, device, first_video)
+    profile_table1(echo, device)
+    torch.cuda.empty_cache()
+    log(f"phase 13 Table 1 {time.perf_counter() - t_phase!r} s")
+    cardiac_cycle_matrix(echo, device)
+    for name in EXAMPLE_DEFAULTS:
+        out, text, seconds = run_example(name, [])
+        log(f"phase 13 {name}: {seconds!r} s")
+        if name == "batch_serving":
+            check("bitwise identical: True" in text and out["bitwise"], "phase 13 batch_serving: not bitwise")
+        if name == "ssae":
+            check(math.isfinite(out["loss"]), f"phase 13 ssae: final loss {out['loss']}")
+        torch.cuda.empty_cache()
+    moe_trainer(device)
+    counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(not counts, f"phase 13: hand kernels launched {counts}")
+    log(f"phase 13 {time.perf_counter() - t_phase!r} s")
+
+
 def profile_solve(label: str, problem, **opts) -> None:
     """Run one warm ``solve`` under `torch.profiler` and print where its
     device time goes (`profile_call`)."""
@@ -4255,6 +4565,7 @@ def main() -> int:
     entries[-1]["launches"] = run_training_slice(device, profile_run)
     log(f"training slice phase {time.perf_counter() - t0!r} s")
     run_lm_families_phase(device)
+    run_applications_phase(device)
     for entry in entries:
         check(entry["launches"] > 0, f"{entry['name']} was not launched on its path")
     if profile_run:

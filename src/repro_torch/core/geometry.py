@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import as_tensor, resolve_device
 
 __all__ = [
     "euclidean_cost",
@@ -28,6 +28,7 @@ __all__ = [
     "squared_euclidean_cost",
     "wfr_cost",
     "wfr_from_dist",
+    "wfr_log_kernel",
 ]
 
 
@@ -73,6 +74,25 @@ def wfr_cost(
         d = euclidean_cost(x, y)
     c, blocked = wfr_from_dist(d, eta)
     return torch.where(blocked, math.inf, c)
+
+
+def wfr_log_kernel(
+    x,
+    y=None,
+    *,
+    eta: float = 1.0,
+    eps: float = 1.0,
+    d: torch.Tensor | None = None,
+    device=None,
+) -> torch.Tensor:
+    """``log K`` for the WFR cost: ``(2/eps) * log cos_+(d/2eta)``, ``-inf``
+    where ``d >= pi*eta``. From points ``x``, ``y`` or distances ``d``, each
+    a tensor or numpy data placed by the device rule (``device=None`` keeps
+    a tensor where it lies and sends numpy data to the card)."""
+    if d is None:
+        x = as_tensor(x, device)
+        return log_gibbs_kernel(wfr_cost(x, None if y is None else as_tensor(y, x.device), eta=eta), eps)
+    return log_gibbs_kernel(wfr_cost(None, eta=eta, d=as_tensor(d, device)), eps)
 
 
 def gathered_cost(

@@ -1,7 +1,8 @@
 """Synthetic OT/UOT measures: the paper's data patterns C1-C3 (Sec. 5.1).
 
-A copy of ``make_measures``/``make_uot_measures`` from the JAX package's
-``repro.data.pointclouds``, kept here so the port imports nothing of it.
+A copy of ``make_measures``, ``make_uot_measures`` and ``wfr_eta_for_density``
+from the JAX package's ``repro.data.pointclouds``, kept here so the port
+imports nothing of it.
 
 C1: a,b ~ empirical N(1/3, 1/20) and N(1/2, 1/20);    x_i ~ U(0,1)^d
 C2: a,b as C1;  x_i ~ N(0, Sigma), Sigma_jk = 0.5^|j-k|
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["make_measures", "make_uot_measures"]
+__all__ = ["make_measures", "make_uot_measures", "wfr_eta_for_density"]
 
 
 def _empirical_hist(rng, n: int, kind: str, loc: float, scale: float) -> np.ndarray:
@@ -56,3 +57,15 @@ def make_uot_measures(
     a, b, x = make_measures(pattern, n, d, seed)
     return a * mass_a, b * mass_b, x
 
+
+
+def wfr_eta_for_density(x: np.ndarray, target_density: float) -> float:
+    """Pick eta so ~``target_density`` of the WFR kernel is non-zero
+    (entries with d_ij < pi * eta). R1/R2/R3 = 0.7 / 0.5 / 0.3."""
+    d = np.sqrt(
+        np.maximum(
+            (x**2).sum(1)[:, None] + (x**2).sum(1)[None, :] - 2 * x @ x.T, 0.0
+        )
+    )
+    q = np.quantile(d.ravel(), target_density)
+    return float(q / np.pi)
