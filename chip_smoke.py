@@ -206,6 +206,29 @@ failure exits non-zero):
    color_transfer, barycenter, batch_serving (bitwise) and ssae (finite
    loss) at their defaults; the MoE trainer's `HUNDRED_M` at 1 x 8 x 512
    for `MOE_STEPS` steps with each router (its loss falls).
+14. (run right after phase 13) the ssm, vlm and audio families at full width
+   and depth, random float32 masters drawn on the card, each model freed
+   before the next; plain torch, so the counts, set to 0 just before the
+   phase (and before each prefill and serve), read 0 after it. Mamba2-130M
+   (128,940,480 parameters): the SSD's cross-chunk scan alone at the
+   chunk states of 1 x 32768 and 1 x 524288, the model's odd/even scan
+   against the doubling scan (ms, kernels, peak memory, agreement); a
+   1 x 32768 ``prefill_step`` (warm under the
+   profiler, then timed; finite logits, the repeat bitwise equal; wall,
+   tokens/s, peak memory), the same at long_500k's 1 x 524288 or the
+   longest of `LONG_LENS` that fits, decode against forward in float32
+   over `SSM_DECODE_LEN` tokens at `DECODE_TOL`, ``serve`` at batch 8 (32 +
+   32) and one decode step under the profiler, and three AdamW steps at 1
+   x TRAIN_SEQ from one state with ``remat="none"`` and ``"full"``: losses
+   bitwise equal, gradients finite and bitwise equal or named leaf by leaf,
+   each step's time and peak memory. Whisper-large-v3 (2,020,421,120; 1500
+   stub frames) and Llama-3.2-Vision-11B (9,775,157,248; 1600 stub image
+   tokens): a 1 x 32768 prefill with the stub memory, ``serve`` at batch 8
+   (the cross cache filled) and a profiled decode step, then decode in
+   float32 over `CROSS_DECODE_LEN` tokens with the cross cache against
+   without it (`DECODE_TOL`) and against ``forward``: Llama's at
+   `DECODE_TOL`, Whisper's printed as C-15's measure (its forward runs the
+   FFN before the cross-attention, its decode after).
 
 ``--profile`` also runs (a), one prefill, one serving decode step and one
 train step of RecurrentGemma under `torch.profiler` and prints where their
@@ -4355,6 +4378,367 @@ def run_applications_phase(device) -> None:
     log(f"phase 13 {time.perf_counter() - t_phase!r} s")
 
 
+# --------------------------------------------------------------------------
+# Phase 14: the ssm, vlm and audio families at full width, no hand kernel
+# --------------------------------------------------------------------------
+
+#: jax.eval_shape of the reference's init_params on each published config
+MAMBA_PARAM_COUNT = 128_940_480
+WHISPER_PARAM_COUNT = 2_020_421_120
+LLAMA_VISION_PARAM_COUNT = 9_775_157_248
+#: long_500k's sequence length at batch 1, then the shorter ones tried if it does not fit
+LONG_LENS = (524_288, 262_144, 131_072)
+SSM_DECODE_LEN = 256  # four of Mamba2's 64-token chunks
+CROSS_DECODE_LEN = 64
+
+
+def phase14_counts(label: str) -> None:
+    from repro_torch.kernels import ops
+
+    counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(not counts, f"phase 14 {label}: hand kernels launched {counts}")
+
+
+def stub_memory(cfg, batch: int, device, seed: int, dtype):
+    """The forward pass's stub input: image embeddings (vlm) or frame
+    embeddings (audio), N(0, 1), drawn on the card."""
+    import torch
+
+    if cfg.family not in ("vlm", "audio"):
+        return None
+    key, m = ("images", cfg.num_image_tokens) if cfg.family == "vlm" else ("frames", cfg.num_frames)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {key: torch.randn((batch, m, cfg.d_model), device=device, generator=gen).to(dtype)}
+
+
+def phase14_prefill(params, cfg, tokens, extras, device, profile: bool = True) -> dict:
+    """``prefill_step`` on ``tokens``: a warm call (under the profiler when
+    ``profile``), then a timed one, the counts set to 0 just before each and
+    read just after (none); finite logits and the repeat bitwise equal."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import prefill_step
+
+    outs, row = [], None
+    for run in ("warm", "timed"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        if run == "warm" and profile:
+            profile_call(f"phase 14 {cfg.name} prefill 1 x {tokens.shape[1]}",
+                         lambda: outs.append(prefill_step(params, tokens, cfg, extras)))
+        else:
+            outs.append(prefill_step(params, tokens, cfg, extras))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        phase14_counts(f"{cfg.name} prefill")
+        row = dict(arch=cfg.name, run=run, batch=tokens.shape[0], seq=tokens.shape[1], wall_s=wall_s,
+                   tokens_per_s=tokens.numel() / wall_s, peak_device_bytes=torch.cuda.max_memory_allocated(device))
+        log("phase 14 prefill " + json.dumps(row))
+        logits = outs[-1]
+        check(tuple(logits.shape) == (tokens.shape[0], cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+              f"phase 14 {cfg.name} prefill: logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    check(torch.equal(outs[0], outs[1]), f"phase 14 {cfg.name} prefill: a repeat is not bitwise equal")
+    log(f"phase 14 {cfg.name} prefill: next token {int(torch.argmax(outs[1][0]))}, logits in "
+        f"[{float(outs[1].min())!r}, {float(outs[1].max())!r}], bitwise equal on the repeat")
+    return row
+
+
+def phase14_serve(params, cfg, device) -> None:
+    """``serve`` at batch 8, 32 prompt and 32 generated tokens (bf16); for
+    the vlm and audio families it draws the stub memory and fills the cross
+    cache; then one warm decode step under the profiler."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import decode_step, init_decode_state
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    seqs = serve(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN, seed=0, device=device, params=params)
+    wall_s = time.perf_counter() - t0
+    phase14_counts(f"{cfg.name} serve")
+    steps = SERVE_PROMPT + SERVE_GEN - 1
+    log("phase 14 serve " + json.dumps(dict(
+        arch=cfg.name, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN, wall_s=wall_s,
+        tokens_per_s=seqs.size / wall_s, ms_per_step=wall_s / steps * 1e3,
+        peak_device_bytes=torch.cuda.max_memory_allocated(device))))
+    check(seqs.shape == (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN) and bool(((seqs >= 0) & (seqs < cfg.vocab_size)).all()),
+          f"phase 14 {cfg.name} serve: served tokens")
+    if cfg.family in ("vlm", "audio"):
+        from repro_torch.launch.serve import _stub_memory
+        from repro_torch.models.lm import fill_cross_cache
+
+        extras = _stub_memory(cfg, SERVE_BATCH, 0, device)
+        state = fill_cross_cache(params, cfg, init_decode_state(cfg, SERVE_BATCH, 64, device=device), extras)
+    else:
+        extras, state = None, init_decode_state(cfg, SERVE_BATCH, 64, device=device)
+    step_tokens = torch.as_tensor(seqs[:, :1], device=device)
+    with torch.no_grad():
+        decode_step(params, state, step_tokens, 0, cfg, extras)
+        profile_call(f"phase 14 {cfg.name} decode step, batch {SERVE_BATCH}",
+                     lambda: decode_step(params, state, step_tokens, 1, cfg, extras))
+    del state, extras
+
+
+def decode_all(params, cfg, tokens, extras, device):
+    """Teacher-forced ``decode_step`` over ``tokens`` in float32 (the cross
+    cache, if the config keeps one, filled from ``extras`` in float32)."""
+    import torch
+
+    from repro_torch.models import decode_step, init_decode_state
+    from repro_torch.models.lm import fill_cross_cache
+
+    state = init_decode_state(cfg, tokens.shape[0], tokens.shape[1], dtype=torch.float32, device=device)
+    if extras is not None:
+        state = fill_cross_cache(params, cfg, state, extras, torch.float32)
+    outs = []
+    for i in range(tokens.shape[1]):
+        lg, state = decode_step(params, state, tokens[:, i:i + 1], i, cfg, extras)
+        outs.append(lg)
+    return torch.cat(outs, dim=1)
+
+
+def phase14_draw(arch: str, count: int, device):
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import init_params, param_count
+
+    cfg = configs.get(arch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    torch.cuda.synchronize()
+    n = param_count(params)
+    log(f"phase 14: {cfg.name} full width and depth ({cfg.family}, {cfg.num_layers} layers), {n} float32 "
+        f"parameters ({n * 4} bytes) drawn on the card in {time.perf_counter() - t0!r} s")
+    check(n == count, f"phase 14 {arch} parameter count {n}")
+    return cfg, params
+
+
+def mamba_long_prefill(params, cfg, device) -> None:
+    """Prefill at long_500k's length (batch 1), or the longest of
+    `LONG_LENS` that fits: a warm call and a timed one."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    for length in LONG_LENS:
+        tokens = torch.randint(0, cfg.vocab_size, (1, length), device=device, generator=gen)
+        try:
+            phase14_prefill(params, cfg, tokens, None, device, profile=False)
+            oom = None
+        except torch.cuda.OutOfMemoryError as exc:
+            oom = str(exc).splitlines()[0]
+        del tokens
+        torch.cuda.empty_cache()  # after the except block has let go of the failed call's frames
+        if oom is not None:
+            log(f"phase 14 {cfg.name} prefill 1 x {length}: out of memory ({oom})")
+            continue
+        log(f"phase 14 {cfg.name}: the longest prefill that fits of {list(LONG_LENS)} is 1 x {length}")
+        return
+    check(False, f"phase 14 {cfg.name}: no prefill of {list(LONG_LENS)} fits")
+
+
+def mamba_remat_steps(cfg, device) -> None:
+    """Three AdamW steps at 1 x TRAIN_SEQ from the same state with remat
+    "none" and "full": the losses bitwise equal, the first step's gradients
+    bitwise equal or the leaves that differ named, all finite; the step time
+    and peak memory of each."""
+    import torch
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.train import init_train_state, loss_and_grads, make_train_step
+    from repro_torch.tree import leaves_with_paths
+
+    tcfg = TrainConfig(seq_len=TRAIN_SEQ, global_batch=1, lr=3e-4, warmup_steps=1)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, 1, seed=tcfg.seed)
+    batches = [{"tokens": torch.as_tensor(pipe.batch(i), dtype=torch.int64, device=device)} for i in range(3)]
+    runs = {}
+    for remat in ("none", "full"):
+        c = cfg.replace(remat=remat)
+        state = init_train_state(c, tcfg, torch.Generator(device=device).manual_seed(0), device=device)
+        names = ["/".join(map(str, path)) for path, _ in leaves_with_paths(state.params)]
+        grads, _ = loss_and_grads(state.params, batches[0], c, tcfg.z_loss)
+        check(all(bool(torch.isfinite(g).all()) for g in grads), f"phase 14 mamba remat={remat}: non-finite gradients")
+        step_fn = make_train_step(c, tcfg)
+        rows = []
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            m = {k: float(v) for k, v in metrics.items()}
+            rows.append(dict(remat=remat, step=i, batch=1, seq=TRAIN_SEQ, wall_s=wall_s,
+                             tokens_per_s=TRAIN_SEQ / wall_s,
+                             peak_device_bytes=torch.cuda.max_memory_allocated(device), **m))
+            log("phase 14 mamba train step " + json.dumps(rows[-1]))
+            check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]), f"phase 14 mamba step {i}: {m}")
+        runs[remat] = (rows, grads)
+        del state, step_fn
+    phase14_counts("mamba train steps")
+    (rows_n, g_n), (rows_f, g_f) = runs["none"], runs["full"]
+    check([r["loss"] for r in rows_n] == [r["loss"] for r in rows_f],
+          f"phase 14 mamba: losses with remat none {[r['loss'] for r in rows_n]} and full {[r['loss'] for r in rows_f]}")
+    differ = [names[j] for j in range(len(names)) if not torch.equal(g_n[j], g_f[j])]
+    log(f"phase 14 mamba remat: losses bitwise equal over the three steps; gradients "
+        + ("bitwise equal in every leaf" if not differ else f"NOT bitwise equal in {differ}")
+        + f"; warm step {rows_n[-1]['wall_s']!r} s (none) against {rows_f[-1]['wall_s']!r} s (full), peak "
+        f"{max(r['peak_device_bytes'] for r in rows_n)} against {max(r['peak_device_bytes'] for r in rows_f)} bytes")
+    del runs, g_n, g_f
+
+
+def ssm_scan_costs(device) -> None:
+    """Phase 14 (1): the SSD's cross-chunk scan alone at Mamba2's chunk
+    states, (1, nc, 24, 128, 64) float32 with nc = PREFILL_LEN / 64 and
+    LONG_LENS[0] / 64: `ssm._assoc_scan` (the reference's odd/even
+    recursion, which the model runs) against the doubling `linear_scan` of
+    kernels/ref.py, each one's ms (CUDA events), device kernels and their
+    time (profiler) and peak memory above its inputs; the two agree."""
+    import torch
+
+    from repro_torch.kernels.ref import linear_scan
+    from repro_torch.models import ssm
+
+    for seq in (PREFILL_LEN, LONG_LENS[0]):
+        nc = seq // 64
+        gen = torch.Generator(device=device).manual_seed(12)
+        a = 0.5 + 0.5 * torch.rand((1, nc, 24, 1, 1), device=device, generator=gen)
+        states = torch.randn((1, nc, 24, 128, 64), device=device, generator=gen)
+        row, outs = dict(seq=seq, nc=nc, state_bytes=states.numel() * 4), {}
+        for name, fn in (("assoc", lambda: ssm._assoc_scan(a, states)[1]),
+                         ("doubling", lambda: linear_scan(a, states, 1)[1])):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            outs[name] = fn()
+            torch.cuda.synchronize()
+            row[f"{name}_peak_extra_bytes"] = torch.cuda.max_memory_allocated(device) - base
+            row[f"{name}_kernels"], dev_us = device_kernels(fn)
+            row[f"{name}_device_ms"] = dev_us / 1e3
+            row[f"{name}_ms"] = time_ms(fn, warmup=1, reps=3)
+        # not `_max_abs_err`: its boolean mask would index 1.6e9 entries at nc = 8192
+        row["max_abs_diff"] = float((outs["assoc"] - outs["doubling"]).abs_().max())
+        row["max_abs"] = float(outs["doubling"].abs().max())
+        log("phase 14 ssd scan " + json.dumps(row))
+        check(row["max_abs_diff"] <= 1e-4 * row["max_abs"], f"phase 14 ssd scan at nc = {nc}: the scans disagree")
+        del a, states, outs
+        torch.cuda.empty_cache()
+
+
+def run_mamba(device) -> None:
+    """Phase 14 (1): Mamba2-130M at full width and depth."""
+    import torch
+
+    ssm_scan_costs(device)
+    cfg, params = phase14_draw("mamba2_130m", MAMBA_PARAM_COUNT, device)
+    gen = torch.Generator(device=device).manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_LEN), device=device, generator=gen)
+    phase14_prefill(params, cfg, tokens, None, device)
+    del tokens
+    mamba_long_prefill(params, cfg, device)
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(dtype="float32")
+    prompt = torch.randint(0, cfg.vocab_size, (1, SSM_DECODE_LEN), device=device, generator=gen)
+    with torch.no_grad():
+        from repro_torch.models import forward
+
+        ref, _ = forward(params, prompt, cfg32)
+        t0 = time.perf_counter()
+        dec = decode_all(params, cfg32, prompt, None, device)
+        torch.cuda.synchronize()
+    torch.testing.assert_close(dec, ref, **DECODE_TOL)
+    log(f"phase 14 {cfg.name} decode against forward, float32, {SSM_DECODE_LEN} tokens: max_abs_err "
+        f"{_max_abs_err(dec, ref)!r} (max |logit| {float(ref.abs().max())!r}); "
+        f"{(time.perf_counter() - t0) / SSM_DECODE_LEN * 1e3!r} ms a step")
+    del ref, dec
+    phase14_serve(params, cfg, device)
+    del params
+    torch.cuda.empty_cache()
+    mamba_remat_steps(cfg, device)
+    torch.cuda.empty_cache()
+
+
+def run_cross_family(arch: str, count: int, device) -> None:
+    """Phase 14 (2, 3): Whisper-large-v3 or Llama-3.2-Vision-11B at full
+    width and depth: prefill with the stub memory, serve, then decode in
+    float32 with and without the cross cache against each other and
+    against ``forward``. Llama's decode must match its forward; Whisper's
+    differs (C-15), and the difference is printed, not checked."""
+    import torch
+
+    from repro_torch.models import forward
+    from repro_torch.models.lm import _encode_audio
+
+    cfg, params = phase14_draw(arch, count, device)
+    gen = torch.Generator(device=device).manual_seed(9)
+    tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_LEN), device=device, generator=gen)
+    phase14_prefill(params, cfg, tokens, stub_memory(cfg, 1, device, 10, torch.bfloat16), device)
+    del tokens
+    torch.cuda.empty_cache()
+    phase14_serve(params, cfg, device)
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.replace(dtype="float32")
+    prompt = torch.randint(0, cfg.vocab_size, (1, CROSS_DECODE_LEN), device=device, generator=gen)
+    mem = stub_memory(cfg, 1, device, 11, torch.float32)
+    with torch.no_grad():
+        ref, _ = forward(params, prompt, cfg32, mem)
+        dec_mem = mem if cfg.family == "vlm" else {"enc_out": _encode_audio(params, mem["frames"], cfg32)}
+        t0 = time.perf_counter()
+        cached = decode_all(params, cfg32, prompt, dec_mem, device)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / CROSS_DECODE_LEN * 1e3
+        uncached = decode_all(params, cfg32.replace(decode_cross_cache=False), prompt, dec_mem, device)
+    phase14_counts(f"{cfg.name} decode")
+    torch.testing.assert_close(cached, uncached, **DECODE_TOL)
+    fwd_err = _max_abs_err(cached, ref)
+    log(f"phase 14 {cfg.name} decode, float32, {CROSS_DECODE_LEN} tokens: with the cross cache against without "
+        f"it max_abs_err {_max_abs_err(cached, uncached)!r}; {step_ms!r} ms a cached step; against forward "
+        f"{fwd_err!r} (max |logit| {float(ref.abs().max())!r})")
+    if cfg.family == "vlm":
+        torch.testing.assert_close(cached, ref, **DECODE_TOL)
+        torch.testing.assert_close(uncached, ref, **DECODE_TOL)
+    else:
+        tol = DECODE_TOL["atol"] + DECODE_TOL["rtol"] * float(ref.abs().max())
+        log(f"phase 14 C-15 on the card: {cfg.name}'s decode (self, cross, FFN) against its forward (self, "
+            f"FFN, cross) differs by up to {fwd_err!r}, {fwd_err / tol!r} x DECODE_TOL at this scale (printed, "
+            f"not checked)")
+    del params, ref, cached, uncached, mem, dec_mem
+    torch.cuda.empty_cache()
+
+
+def run_new_families_phase(device) -> None:
+    """Phase 14: the ssm, vlm and audio families at full width and depth,
+    each model freed before the next is drawn; plain torch, so the launch
+    counts, set to 0 just before, read 0 after."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    torch.cuda.empty_cache()
+    run_mamba(device)
+    log(f"phase 14 mamba2_130m {time.perf_counter() - t_phase!r} s")
+    t0 = time.perf_counter()
+    run_cross_family("whisper_large_v3", WHISPER_PARAM_COUNT, device)
+    log(f"phase 14 whisper_large_v3 {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    run_cross_family("llama32_vision_11b", LLAMA_VISION_PARAM_COUNT, device)
+    log(f"phase 14 llama32_vision_11b {time.perf_counter() - t0!r} s")
+    phase14_counts("the phase")
+    log(f"phase 14 {time.perf_counter() - t_phase!r} s")
+
+
 def profile_solve(label: str, problem, **opts) -> None:
     """Run one warm ``solve`` under `torch.profiler` and print where its
     device time goes (`profile_call`)."""
@@ -4566,6 +4950,7 @@ def main() -> int:
     log(f"training slice phase {time.perf_counter() - t0!r} s")
     run_lm_families_phase(device)
     run_applications_phase(device)
+    run_new_families_phase(device)
     for entry in entries:
         check(entry["launches"] > 0, f"{entry['name']} was not launched on its path")
     if profile_run:

@@ -4,12 +4,9 @@ The port's own copy of the reference's ``repro.configs.base`` (pure
 Python, so it is copied, not imported): `ModelConfig` with every field and
 default, `SHAPES`, `ARCH_IDS` and `get`. Each ported architecture has one
 module in this package defining ``CONFIG`` (the published numbers) and
-``SMOKE`` (a reduced config of the same family for CPU tests). Seven
-are ported: the ``hybrid`` RecurrentGemma, the ``dense`` Qwen3, StableLM,
-StarCoder2 and Gemma3, and the ``moe`` OLMoE and Llama-4-Scout; `get`
-raises `KeyError` for the ``ssm``, ``vlm`` and ``audio`` ones (ROADMAP
-A-11). `TrainConfig` holds a training run's settings, with the
-reference's fields and defaults.
+``SMOKE`` (a reduced config of the same family for CPU tests); all ten of
+the reference's architectures are here. `TrainConfig` holds a training
+run's settings, with the reference's fields and defaults.
 """
 from __future__ import annotations
 
@@ -30,17 +27,6 @@ ARCH_IDS = (
     "mamba2_130m",
     "llama32_vision_11b",
     "whisper_large_v3",
-    "recurrentgemma_2b",
-)
-
-# the architectures whose config module the port has (ROADMAP A-11)
-_PORTED = (
-    "olmoe_1b_7b",
-    "llama4_scout_17b_a16e",
-    "qwen3_14b",
-    "stablelm_3b",
-    "starcoder2_7b",
-    "gemma3_12b",
     "recurrentgemma_2b",
 )
 
@@ -163,8 +149,6 @@ def get(name: str) -> ModelConfig:
     arch = arch.replace("-", "_")
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
-    if arch not in _PORTED:
-        raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP A-11); ported: {_PORTED}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.SMOKE if smoke else mod.CONFIG
 

@@ -160,21 +160,43 @@ def _unstack(tree, n: int, path: str) -> list:
     return list(arr)
 
 
+def _unstacked(tree, cfg) -> dict:
+    """The reference's parameter tree with its stacked blocks split into
+    the port's lists: ``blocks`` on the layer axis (dense, moe, ssm,
+    audio), on the group then the layer-in-group axis (vlm), beside
+    ``cross_blocks`` (vlm) and ``encoder`` (audio). A tree whose blocks
+    are not a dict (the hybrid family's list, or a malformed tree) is
+    left for the key and shape checks."""
+    if not isinstance(tree, dict) or not isinstance(tree.get("blocks"), dict):
+        return tree
+    fam = cfg.family
+    out = dict(tree)
+    if fam in ("dense", "moe", "ssm", "audio"):
+        out["blocks"] = _unstack(tree["blocks"], cfg.num_layers, "params/blocks")
+    if fam == "vlm":
+        n_groups = cfg.num_layers // cfg.cross_attn_period
+        groups = _unstack(tree["blocks"], n_groups, "params/blocks")
+        out["blocks"] = [_unstack(g, cfg.cross_attn_period - 1, f"params/blocks[{i}]") for i, g in enumerate(groups)]
+        if isinstance(tree.get("cross_blocks"), dict):
+            out["cross_blocks"] = _unstack(tree["cross_blocks"], n_groups, "params/cross_blocks")
+    if fam == "audio" and isinstance(tree.get("encoder"), dict):
+        out["encoder"] = _unstack(tree["encoder"], cfg.encoder_layers, "params/encoder")
+    return out
+
+
 def lm_params_from_numpy(tree, cfg, device=None):
     """The port's LM parameters from the reference's parameter pytree with
-    numpy leaves (``jax.tree.map(np.asarray, params)``): ``embed``,
-    ``unembed``, ``final_norm`` and the ``blocks``, each leaf as a
+    numpy leaves (``jax.tree.map(np.asarray, params)``), each leaf as a
     ``cfg.param_dtype`` tensor on ``device`` (``None`` means ``"cuda"``).
     The hybrid family's blocks are a list of RG-LRU and attention dicts in
-    both packages; the dense and moe families' are one dict whose leaves
-    are stacked along a leading layer axis, which is split into the port's
-    list of per-layer dicts. Every key and shape is checked against the
-    port's own layout for ``cfg``; a missing or extra key, a wrong block
-    count, a wrong layer axis or a wrong shape raises `ValueError`."""
+    both packages; the other families' are dicts whose leaves are stacked
+    along leading layer axes (two in the vlm family's ``blocks``), which
+    are split into the port's lists (`_unstacked`). Every key and shape is
+    checked against the port's own layout for ``cfg``; a missing or extra
+    key, a wrong block count, a wrong layer axis or a wrong shape raises
+    `ValueError`."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
-    if cfg.family in ("dense", "moe") and isinstance(tree, dict) and isinstance(tree.get("blocks"), dict):
-        tree = dict(tree, blocks=_unstack(tree["blocks"], cfg.num_layers, "params/blocks"))
 
     def convert(expected, given, path):
         if isinstance(expected, torch.Tensor):
@@ -192,7 +214,7 @@ def lm_params_from_numpy(tree, cfg, device=None):
             raise ValueError(f"{path}: {got} entries, expected a list of {len(expected)}")
         return [convert(e, g, f"{path}[{i}]") for i, (e, g) in enumerate(zip(expected, given))]
 
-    return convert(init_params(cfg, device="meta"), tree, "params")
+    return convert(init_params(cfg, device="meta"), _unstacked(tree, cfg), "params")
 
 
 def train_state_from_numpy(tree, cfg, tcfg, device=None) -> TrainState:

@@ -7,11 +7,13 @@ The counterpart of the reference's ``repro.launch.serve`` (the decode
 loop) and of the prefill step of ``repro.launch.specs`` (next-token logits
 of the last position of a whole prompt, the ``prefill_32k`` cell's step).
 As in the reference, `serve` feeds the prompt token by token through
-``decode_step`` and then decodes greedily. Both serve every ported family
-(``dense``, ``moe``, ``hybrid``; ``--arch olmoe_1b_7b:smoke``, say); the
+``decode_step`` and then decodes greedily. Both serve every family
+(``--arch mamba2_130m:smoke`` or ``whisper_large_v3:smoke``, say); the
 MoE routers' draws come from generators seeded 0, as the reference's come
-from ``PRNGKey(0)``. Runs on the card unless ``device`` names the CPU;
-with no card, ``device=None`` raises.
+from ``PRNGKey(0)``. The vlm and audio families take stub memories, as in
+the reference: `serve` draws the image embeddings or the encoder output
+and fills the cross cache from them. Runs on the card unless ``device``
+names the CPU; with no card, ``device=None`` raises.
 """
 from __future__ import annotations
 
@@ -25,15 +27,31 @@ from repro_torch import configs
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import decode_step, forward, init_decode_state, init_params
+from repro_torch.models.lm import fill_cross_cache
 
 __all__ = ["prefill_step", "serve"]
 
 
-def prefill_step(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def prefill_step(params, tokens: torch.Tensor, cfg: ModelConfig, extras=None) -> torch.Tensor:
     """Serving semantics of a prompt: next-token logits for the last
-    position only, (B, S) -> (B, V) float32."""
-    logits, _ = forward(params, tokens, cfg, last_only=True)
+    position only, (B, S) -> (B, V) float32. ``extras`` as `forward`
+    takes them (``{"images"}`` or ``{"frames"}``)."""
+    logits, _ = forward(params, tokens, cfg, extras, last_only=True)
     return logits[:, -1, :]
+
+
+def _stub_memory(cfg: ModelConfig, batch: int, seed: int, device):
+    """The reference's stub memory for the vlm and audio families (None
+    for the others): N(0, 1) in bf16, drawn on the CPU from ``seed``."""
+    if cfg.family == "vlm":
+        key, length = "images", cfg.num_image_tokens
+    elif cfg.family == "audio":
+        key, length = "enc_out", cfg.num_frames
+    else:
+        return None
+    gen = torch.Generator().manual_seed(seed)
+    draw = torch.randn((batch, length, cfg.d_model), generator=gen)
+    return {key: draw.to(torch.bfloat16).to(device)}
 
 
 @torch.no_grad()
@@ -44,21 +62,26 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int, seed: int 
 
     Parameters are drawn from ``seed`` on ``device`` unless given. The
     prompt tokens come from a CPU `torch.Generator` seeded with ``seed``,
-    so a seed gives the same prompts on every device. Prints the decoded
-    count and tok/s, then ``sample:`` and the first sequence's first 32
-    tokens, as the reference does.
+    and so does the stub memory (vlm: images (batch, num_image_tokens, d);
+    audio: the encoder output (batch, num_frames, d); bf16, from a second
+    such generator), so a seed gives the same prompts and memory on every
+    device. Prints the decoded count and tok/s, then ``sample:`` and the
+    first sequence's first 32 tokens, as the reference does.
     """
     dev = resolve_device(device)
     if params is None:
         params = init_params(cfg, seed, device=dev)
     total = prompt_len + gen
     state = init_decode_state(cfg, batch, total, device=dev)
+    extras = _stub_memory(cfg, batch, seed, dev)
+    if extras is not None:
+        state = fill_cross_cache(params, cfg, state, extras)
     prompt_gen = torch.Generator().manual_seed(seed)
     tokens = torch.randint(0, cfg.vocab_size, (batch, 1), generator=prompt_gen).to(dev)
     out = [tokens.cpu().numpy()]
     t0 = time.time()
     for i in range(total - 1):
-        logits, state = decode_step(params, state, tokens, i, cfg)
+        logits, state = decode_step(params, state, tokens, i, cfg, extras)
         if i >= prompt_len - 1:
             tokens = torch.argmax(logits[:, -1:], dim=-1)
         else:

@@ -8,9 +8,11 @@ and its loop: batches from the stateless `TokenPipeline` (step-addressed,
 so a resumed run sees the same token stream), a checkpoint every
 ``--ckpt-every`` steps and at the end, SIGTERM or ``--max-seconds`` ends
 the run with a checkpoint, and a rerun of the same command resumes from
-the latest one. Runs on the card unless ``--device cpu``; with no card the
-default raises. The reference's mesh sharding is not ported: ``--mesh``
-takes ``1x1`` only.
+the latest one. ``train_loop``'s ``extras_fn`` adds a family's stub inputs
+(``{"images"}`` or ``{"frames"}``) to each step's batch, as the
+reference's does. Runs on the card unless ``--device cpu``; with no card
+the default raises. The reference's mesh sharding is not ported:
+``--mesh`` takes ``1x1`` only.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import time
 import torch
 
 from repro_torch import configs
-from repro_torch._device import resolve_device
+from repro_torch._device import as_tensor, resolve_device
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.data import TokenPipeline
 from repro_torch.train import checkpoint as ckpt
@@ -30,10 +32,12 @@ __all__ = ["main", "train_loop"]
 
 
 def train_loop(cfg: ModelConfig, tcfg: TrainConfig, *, device=None, log_every: int = 10,
-               max_seconds: float = 0.0):
+               extras_fn=None, max_seconds: float = 0.0):
     """Train from step 0, or from the latest checkpoint in
-    ``tcfg.checkpoint_dir``, to ``tcfg.total_steps``. Returns ``(state,
-    history)``, ``history`` the ``(step, metrics)`` pairs it logged."""
+    ``tcfg.checkpoint_dir``, to ``tcfg.total_steps``. ``extras_fn(step)``,
+    if given, returns a dict of arrays or tensors added to that step's
+    batch (moved to the device). Returns ``(state, history)``, ``history``
+    the ``(step, metrics)`` pairs it logged."""
     dev = resolve_device(device)
     ckpt.install_preemption_handler()
     step_fn = make_train_step(cfg, tcfg)
@@ -52,6 +56,8 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, *, device=None, log_every: i
     history = []
     for step in range(first, tcfg.total_steps):
         batch = {"tokens": torch.as_tensor(pipe.batch(step), dtype=torch.int64, device=dev)}
+        if extras_fn is not None:
+            batch.update({k: as_tensor(v, dev) for k, v in extras_fn(step).items()})
         state, metrics = step_fn(state, batch)
         if step % log_every == 0 or step == tcfg.total_steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
@@ -87,7 +93,7 @@ def main(argv=None) -> None:
 
     if args.mesh != "1x1":
         raise ValueError(f"--mesh {args.mesh}: the port trains on one device (1x1); mesh sharding "
-                         "(distributed/sharding.py) is not ported yet (ROADMAP A-11)")
+                         "(launch/mesh.py, distributed/sharding.py) is not ported yet (ROADMAP A-11.7/8)")
     cfg = configs.get(args.arch)
     tcfg = TrainConfig(
         seq_len=args.seq, global_batch=args.batch, lr=args.lr,

@@ -1,4 +1,5 @@
-"""Model zoo: the port's functional LM (the dense, moe and hybrid families)."""
+"""Model zoo: the port's functional LM, all six of the reference's families
+(dense, moe, ssm, hybrid, vlm, audio) and so its ten architectures."""
 from repro_torch.models.lm import (
     decode_step,
     forward,

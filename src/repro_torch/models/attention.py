@@ -1,16 +1,20 @@
 """Attention: grouped-query attention with RoPE / qk-norm, query-chunked
-softmax, sliding-window masks, and KV-cache decode with ring buffers for
-windowed layers.
+softmax, sliding-window and bidirectional masks, cross-attention, and
+KV-cache decode with ring buffers for windowed layers.
 
-The counterpart of the reference's ``repro.models.attention`` without
-cross-attention and the bidirectional (encoder) mask, which come with the
-VLM and audio families, and without the sharding constraints (no-ops on
-one card). The query-chunked formulation
+The counterpart of the reference's ``repro.models.attention``, without the
+sharding constraints (no-ops on one card). The query-chunked formulation
 (a loop over query tiles against the full K/V) keeps the score memory at
 (B, Hkv, rep, chunk, S) instead of (B, H, S, S). Scores are computed for
 the whole chunk x S and then masked, as in the reference: at S = 32768
 that is O(S^2) products, left to ``torch.matmul`` as the reference leaves
 them to XLA.
+
+Cross-attention (the VLM's image layers, Whisper's decoder) attends from
+the tokens to a fixed memory (image patches, encoder frames) with no RoPE,
+no qk-norm and an all-true mask, unchunked as in the reference: its
+float32 scores are (B, H, S, M). `cross_kv` projects the memory once so
+that decode steps skip those projections (`cross_attention_cached`).
 """
 from __future__ import annotations
 
@@ -22,19 +26,30 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense, dense_init, rms_norm, rms_norm_init, rope
 
-__all__ = ["init_attention", "attention", "KVCache", "init_kv_cache", "attention_decode"]
+__all__ = [
+    "KVCache",
+    "attention",
+    "attention_decode",
+    "cross_attention",
+    "cross_attention_cached",
+    "cross_kv",
+    "init_attention",
+    "init_kv_cache",
+]
 
 _NEG = -1e30
 
 
-def init_attention(gen, cfg: ModelConfig, device, dtype=torch.float32):
+def init_attention(generator, cfg: ModelConfig, device, dtype=torch.float32, cross: bool = False):
+    """The projections (and the qk-norm scales if ``cfg.qk_norm``, but not
+    for ``cross``-attention), drawn from ``generator``."""
     p = {
-        "wq": dense_init(gen, cfg.d_model, cfg.q_dim, device, dtype),
-        "wk": dense_init(gen, cfg.d_model, cfg.kv_dim, device, dtype),
-        "wv": dense_init(gen, cfg.d_model, cfg.kv_dim, device, dtype),
-        "wo": dense_init(gen, cfg.q_dim, cfg.d_model, device, dtype),
+        "wq": dense_init(generator, cfg.d_model, cfg.q_dim, device, dtype),
+        "wk": dense_init(generator, cfg.d_model, cfg.kv_dim, device, dtype),
+        "wv": dense_init(generator, cfg.d_model, cfg.kv_dim, device, dtype),
+        "wo": dense_init(generator, cfg.q_dim, cfg.d_model, device, dtype),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = rms_norm_init(cfg.head_dim, device, dtype)
         p["k_norm"] = rms_norm_init(cfg.head_dim, device, dtype)
     return p
@@ -83,8 +98,11 @@ def attention(
     positions: torch.Tensor,  # (S,)
     cfg: ModelConfig,
     window: int,  # <= 0 means full causal
+    causal: bool = True,  # False => bidirectional (the Whisper encoder)
 ) -> torch.Tensor:
-    """Causal (optionally sliding-window) self-attention, query-chunked."""
+    """Causal (optionally sliding-window) self-attention, query-chunked;
+    ``causal=False`` lets every position see every other (RoPE still
+    applies, as in the reference)."""
     dtype = x.dtype
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, positions[None, :], dtype)
@@ -97,12 +115,54 @@ def attention(
     for c0 in range(0, s, chunk):
         pos_i = positions[c0 : c0 + chunk]
         rel = pos_i[:, None] - positions[None, :]
-        visible = rel >= 0
+        visible = rel >= 0 if causal else torch.ones_like(rel, dtype=torch.bool)
         in_window = torch.abs(rel) < window if window > 0 else torch.ones_like(visible)
         mask = (visible & in_window)[None].expand(b, chunk, s)
         outs.append(_gqa_attend(q[:, c0 : c0 + chunk], k, v, mask, scale))
     out = torch.cat(outs, dim=1).reshape(b, s, cfg.q_dim)
     return dense(params["wo"], out, dtype)
+
+
+def cross_kv(params, memory: torch.Tensor, cfg: ModelConfig, dtype=torch.bfloat16):
+    """The cross-attention K/V of the (fixed) memory, (B, M, Hkv, hd) each,
+    projected once a request so that decode steps skip the (B, M, D)
+    projections."""
+    k = _split_heads(dense(params["wk"], memory.to(dtype), dtype), cfg.num_kv_heads, cfg.head_dim)
+    v = _split_heads(dense(params["wv"], memory.to(dtype), dtype), cfg.num_kv_heads, cfg.head_dim)
+    return k, v
+
+
+def _cross_attend(params, x, k, v, cfg: ModelConfig):
+    dtype = x.dtype
+    b, s, _ = x.shape
+    q = _split_heads(dense(params["wq"], x, dtype), cfg.num_heads, cfg.head_dim)
+    mask = torch.ones((b, s, k.shape[1]), dtype=torch.bool, device=x.device)
+    out = _gqa_attend(q, k, v, mask, cfg.head_dim**-0.5)
+    return dense(params["wo"], out.reshape(b, s, cfg.q_dim), dtype)
+
+
+def cross_attention_cached(
+    params,
+    x: torch.Tensor,  # (B, S, D) queries
+    k: torch.Tensor,  # (B, M, Hkv, hd) from `cross_kv`
+    v: torch.Tensor,
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """Cross-attention against precomputed K/V (cast to ``x``'s dtype)."""
+    return _cross_attend(params, x, k.to(x.dtype), v.to(x.dtype), cfg)
+
+
+def cross_attention(
+    params,
+    x: torch.Tensor,  # (B, S, D) queries
+    memory: torch.Tensor,  # (B, M, D) keys/values source (image / encoder output)
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """Cross-attention from ``x`` to ``memory``, both in ``x``'s dtype."""
+    dtype = x.dtype
+    k = _split_heads(dense(params["wk"], memory, dtype), cfg.num_kv_heads, cfg.head_dim)
+    v = _split_heads(dense(params["wv"], memory, dtype), cfg.num_kv_heads, cfg.head_dim)
+    return _cross_attend(params, x, k, v, cfg)
 
 
 # --------------------------------------------------------------------------

@@ -110,6 +110,25 @@ def embed(params, tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     return params["w"][tokens].to(dtype)
 
 
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, ``logaddexp(x, 0)`` (``F.softplus`` switches to
+    the identity above 20, which this does not)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise conv of width K along S, in the working dtype:
+    ``sum_i pad(x)[:, i : i + S] * w[i]`` with K - 1 zeros in front, summed
+    left to right (RG-LRU's and Mamba-2's). x (B, S, C), w (K, C)."""
+    k = w.shape[0]
+    pad = F.pad(x, (0, 0, k - 1, 0))
+    s = x.shape[1]
+    out = pad[:, 0:s, :] * w[0][None, None, :]
+    for i in range(1, k):
+        out = out + pad[:, i : i + s, :] * w[i][None, None, :]
+    return out
+
+
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if cap <= 0:
         return x

@@ -28,7 +28,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import lru_scan
 from repro_torch.kernels.ref import linear_scan
-from repro_torch.models.layers import _normal, dense_init
+from repro_torch.models.layers import _causal_conv, _normal, _softplus, dense_init
 
 __all__ = ["init_rglru", "rglru_forward", "RGLRUState", "init_rglru_state", "rglru_decode"]
 
@@ -51,22 +51,6 @@ def init_rglru(gen, cfg: ModelConfig, device, dtype=torch.float32):
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
-
-
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    return torch.logaddexp(x, torch.zeros_like(x))  # jax.nn.softplus
-
-
-def _causal_conv(x, w):
-    """Causal depthwise conv of width K along S, in the working dtype:
-    ``sum_i pad(x)[:, i : i + S] * w[i]`` with K - 1 zeros in front."""
-    k = w.shape[0]
-    pad = F.pad(x, (0, 0, k - 1, 0))
-    s = x.shape[1]
-    out = pad[:, 0:s, :] * w[0][None, None, :]
-    for i in range(1, k):
-        out = out + pad[:, i : i + s, :] * w[i][None, None, :]
-    return out
 
 
 def _gates(params, u, dtype):

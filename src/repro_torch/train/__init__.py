@@ -6,7 +6,13 @@ from repro_torch.train.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
-from repro_torch.train.step import TrainState, init_train_state, loss_and_grads, make_train_step
+from repro_torch.train.step import (
+    TrainState,
+    init_train_state,
+    loss_and_grads,
+    make_serve_step,
+    make_train_step,
+)
 
 __all__ = [
     "TrainState",
@@ -14,6 +20,7 @@ __all__ = [
     "install_preemption_handler",
     "latest_step",
     "loss_and_grads",
+    "make_serve_step",
     "make_train_step",
     "preempted",
     "restore_checkpoint",

@@ -1,7 +1,7 @@
 """The train step: loss, gradients, optional accumulation and compression, AdamW.
 
 The counterpart of the reference's ``repro.train.step`` (``TrainState``,
-``init_train_state``, ``make_train_step``). The step is eager PyTorch: the
+``init_train_state``, ``make_train_step``, ``make_serve_step``). The step is eager PyTorch: the
 gradients come from ``loss.backward()``, and the parameters and moments are
 updated in place under ``torch.no_grad()``, so a step returns the state it
 was given. Its metrics are 0-dim tensors on the device; nothing reads them
@@ -27,7 +27,7 @@ from repro_torch.optim import adamw_init, adamw_update, cosine_schedule, ef_upda
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.tree import leaves, tree_map, unflatten
 
-__all__ = ["TrainState", "init_train_state", "loss_and_grads", "make_train_step"]
+__all__ = ["TrainState", "init_train_state", "loss_and_grads", "make_serve_step", "make_train_step"]
 
 _METRICS = ("loss", "ce", "z_loss", "moe_aux")
 
@@ -68,7 +68,10 @@ def loss_and_grads(params, batch, cfg: ModelConfig, z_loss: float = 1e-4):
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     """Returns ``train_step(state, batch) -> (state, metrics)``, ``batch =
-    {"tokens": (B, S) integer tensor}``; ``state`` is updated in place."""
+    {"tokens": (B, S) integer tensor}`` plus the family's stub inputs
+    (``"images"``, ``"frames"``), which go to `lm.forward` as ``extras``;
+    microbatches split every entry along its batch axis. ``state`` is
+    updated in place."""
 
     def train_step(state: TrainState, batch):
         if tcfg.microbatch and tcfg.microbatch > 0:
@@ -113,3 +116,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         return state, metrics
 
     return train_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """Returns ``serve_step(params, state, tokens, pos, extras=None) ->
+    (logits, state)``: one `lm.decode_step`."""
+
+    def serve_step(params, state, tokens, pos, extras=None):
+        return lm.decode_step(params, state, tokens, pos, cfg, extras)
+
+    return serve_step
