@@ -229,6 +229,24 @@ failure exits non-zero):
    without it (`DECODE_TOL`) and against ``forward``: Llama's at
    `DECODE_TOL`, Whisper's printed as C-15's measure (its forward runs the
    FFN before the cross-attention, its decode after).
+15. (run right after phase 14) the mesh slice: (iii) first starts the
+   dry-run in subprocesses (a fake process group cannot share a process
+   with NCCL): one cell of each family (`DRYRUN_FAMILIES`), ``decode_32k``,
+   on the 16x16 and the 2x16x16 mesh, and RecurrentGemma-2B's train step
+   at 1 x TRAIN_SEQ on a 1x1 mesh (its default ``chunked`` scan: the
+   dry-run's parameters lie on ``meta``, where B5 does not run); then (i) builds a 1x1 CUDA mesh (a world-1
+   NCCL group) and runs RecurrentGemma-2B's train step at full width, 1 x
+   TRAIN_SEQ, ``rglru_backend="pallas"``, three steps placed by
+   ``param_specs``, then the same three steps unsharded from the same seed,
+   each state freed before the next: losses, and each parameter's float64
+   sum, sum of squares and first 4096 entries after step 3, bitwise equal;
+   each step's time and peak memory, and B5/B6's launches (counts set to 0
+   just before each step and read just after: one of each an RG-LRU
+   layer, nothing else); (ii) ``BucketedExecutor(mesh=<1x1>)`` on 8 of
+   phase 11's problems with ``spar_sink_mf``, bitwise ``mesh=None``'s
+   solutions, one B1 launch a problem; then (iii)'s records: each one's
+   collectives, their bytes, ``model_flops_global``, per-device bytes and
+   seconds, and the 1x1 estimate beside (i)'s measured peak.
 
 ``--profile`` also runs (a), one prefill, one serving decode step and one
 train step of RecurrentGemma under `torch.profiler` and prints where their
@@ -4739,6 +4757,222 @@ def run_new_families_phase(device) -> None:
     log(f"phase 14 {time.perf_counter() - t_phase!r} s")
 
 
+# --------------------------------------------------------------------------
+# Phase 15: the mesh slice (sharded training, the sharded executor, dry-run)
+# --------------------------------------------------------------------------
+
+#: the dry-run cells of phase 15 (iii): one architecture a family, each a
+#: job of its own, on both production meshes; plus RecurrentGemma-2B's step
+#: at phase 8's shape on a 1x1 mesh
+DRYRUN_FAMILIES = ("qwen3_14b", "olmoe_1b_7b", "mamba2_130m", "llama32_vision_11b", "whisper_large_v3",
+                   "recurrentgemma_2b")
+DRYRUN_SHAPE = "decode_32k"
+DRYRUN_TIMEOUT_S = 200
+DRYRUN_CHILD = r"""
+import json, sys
+from repro_torch.configs import base
+from repro_torch.launch import dryrun
+
+arch, shape, meshes = sys.argv[1], sys.argv[2], sys.argv[3]
+if shape == "train_1x{seq}":
+    base.SHAPES[shape] = ({seq}, 1, "train")
+for mesh in meshes.split(","):
+    shape_m = tuple(int(v) for v in mesh.split("x"))
+    rec = dryrun.run_cell(arch, shape, mesh_shape=shape_m, multi_pod=len(shape_m) == 3, verbose=False)
+    print("RECORD " + json.dumps(rec), flush=True)
+"""
+
+
+def start_dryruns() -> list:
+    """Phase 15 (iii)'s jobs, started now and read by `finish_dryruns`."""
+    import os
+
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parent / "src")
+    child = DRYRUN_CHILD.replace("{seq}", str(TRAIN_SEQ))
+    jobs = [(arch, DRYRUN_SHAPE, "16x16,2x16x16") for arch in DRYRUN_FAMILIES]
+    jobs.append(("recurrentgemma_2b", f"train_1x{TRAIN_SEQ}", "1x1"))
+    return [(job, subprocess.Popen([sys.executable, "-c", child, *job], env=env, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True)) for job in jobs]
+
+
+def finish_dryruns(procs, measured_peak: int) -> None:
+    """Wait for (iii)'s jobs (killing any still running at the deadline),
+    check and print their records."""
+    deadline = time.perf_counter() + DRYRUN_TIMEOUT_S
+    records = []
+    try:
+        for job, proc in procs:
+            try:
+                out, err = proc.communicate(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+                check(False, f"phase 15 dry-run {job} did not finish in {DRYRUN_TIMEOUT_S} s")
+            got = [json.loads(line[len("RECORD "):]) for line in out.splitlines() if line.startswith("RECORD ")]
+            check(proc.returncode == 0 and len(got) == len(job[2].split(",")),
+                  f"phase 15 dry-run {job} failed ({proc.returncode}): {err[-3000:]}")
+            records += got
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rec in records:
+        coll = rec["collectives"]
+        row = dict(arch=rec["arch"], shape=rec["shape"], mesh=rec["mesh"], collectives=coll["count"],
+                   collective_bytes=coll["total_bytes"], model_flops_global=rec["model_flops_global"],
+                   flops_per_device=rec["cost"]["flops"], peak_bytes_per_device=rec["memory"]["peak_bytes"],
+                   argument_bytes_per_device=rec["memory"]["argument_bytes"], seconds=rec["lower_s"],
+                   bottleneck=rec["bottleneck"])
+        log("phase 15 dry-run " + json.dumps(row))
+        check(rec["model_flops_global"] > 0 and rec["memory"]["peak_bytes"] > 0, f"phase 15 dry-run {row}")
+        if rec["devices"] > 1:
+            check(coll["count"] > 0, f"phase 15 dry-run {rec['arch']} on {rec['mesh']}: no collective")
+        else:
+            log(f"phase 15: the dry-run's per-device peak for {rec['arch']} at 1 x {TRAIN_SEQ} on a 1x1 mesh "
+                f"{rec['memory']['peak_bytes']} bytes (arguments {rec['memory']['argument_bytes']}, step "
+                f"{rec['memory']['temp_bytes']}), beside (i)'s measured peak {measured_peak} bytes")
+
+
+def _digest(t) -> tuple:
+    """A parameter's float64 sum, sum of squares and first 4096 entries."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    local = t.to_local() if isinstance(t, DTensor) else t
+    x = local.detach().double()
+    return torch.stack([x.sum(), (x * x).sum()]).cpu(), local.detach().reshape(-1)[:4096].cpu()
+
+
+def sharded_train_steps(mesh, device) -> tuple[dict, int]:
+    """Phase 15 (i): three sharded steps on the 1x1 mesh, then three
+    unsharded ones from the same seed; returns the sharded run's launches
+    and its peak device bytes."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = configs.get("recurrentgemma_2b").replace(rglru_backend="pallas")
+    n_rglru = sum(cfg.block_pattern[i % len(cfg.block_pattern)] == "rglru" for i in range(cfg.num_layers))
+    tcfg = TrainConfig(seq_len=TRAIN_SEQ, global_batch=1, lr=3e-4)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, 1, seed=tcfg.seed)
+    runs = {}
+    total: dict[str, int] = {}
+    for name, m in (("sharded", mesh), ("unsharded", None)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        state = init_train_state(cfg, tcfg, torch.Generator(device=device).manual_seed(0), device=device, mesh=m)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        if m is not None:
+            placed = sorted({str(p.placements) for p in leaves(state.params)})
+            check(all(isinstance(p, DTensor) for p in leaves(state.params) + leaves(state.opt.m)),
+                  "phase 15: the sharded state holds plain tensors")
+            log(f"phase 15 (i): state placed by param_specs on {mesh}: placements {placed}")
+        step = make_train_step(cfg, tcfg, m)
+        losses, rows = [], []
+        for i in range(3):
+            batch = {"tokens": torch.as_tensor(pipe.batch(i), dtype=torch.int64, device=device)}
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+            check(counts == {"lru_scan_fwd": n_rglru, "lru_scan_bwd": n_rglru},
+                  f"phase 15 (i) {name} step {i}: launches {counts}")
+            if m is not None:
+                _launches_into(total, counts)
+            loss = metrics["loss"].full_tensor() if isinstance(metrics["loss"], DTensor) else metrics["loss"]
+            losses.append(loss.cpu())
+            row = dict(run=name, step=i, wall_s=wall, peak_device_bytes=torch.cuda.max_memory_allocated(device),
+                       loss=float(loss), launches=counts)
+            rows.append(row)
+            log("phase 15 (i) train step " + json.dumps(row))
+        check(all(math.isfinite(float(v)) for v in losses), f"phase 15 (i) {name}: non-finite losses")
+        runs[name] = (losses, [_digest(p) for p in leaves(state.params)],
+                      torch.cuda.max_memory_allocated(device), rows, init_s)
+        del state, step, metrics
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    (l1, d1, peak1, rows1, init1), (l2, d2, peak2, rows2, init2) = runs["sharded"], runs["unsharded"]
+    same_loss = all(torch.equal(a, b) for a, b in zip(l1, l2))
+    differ = [j for j, (a, b) in enumerate(zip(d1, d2)) if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))]
+    log(f"phase 15 (i): losses sharded {[float(v) for v in l1]} unsharded {[float(v) for v in l2]}; "
+        f"{len(d1) - len(differ)} of {len(d1)} parameter digests equal after step 3; init {init1!r} / {init2!r} s; "
+        f"warm step {rows1[-1]['wall_s']!r} / {rows2[-1]['wall_s']!r} s; peak {peak1} / {peak2} bytes "
+        f"(sharded / unsharded)")
+    check(same_loss and not differ, f"phase 15 (i): the 1x1-mesh step is not bitwise the unsharded step "
+          f"(losses equal {same_loss}, parameters that differ {differ[:8]})")
+    return total, peak1
+
+
+def sharded_executor(mesh, device) -> dict:
+    """Phase 15 (ii): the executor on the 1x1 mesh against mesh=None."""
+    import torch
+
+    import repro_torch as rt
+    from repro_torch.batch import BucketedExecutor
+    from repro_torch.obs.metrics import MetricsRegistry
+
+    problems = _parity_problems(device, count=8, lams=PARITY_LAMS)
+    opts = dict(method="spar_sink_mf", seeds=list(range(8)), s=8 * rt.s0(2048), tol=1e-6, max_iter=2000)
+    total: dict[str, int] = {}
+    refs, wall_ref, _ = batched_dispatch({}, BucketedExecutor(metrics=MetricsRegistry()), problems, **opts)
+    sols, wall, counts = batched_dispatch(total, BucketedExecutor(mesh=mesh, metrics=MetricsRegistry()),
+                                          problems, **opts)
+    check(counts == {"gathered_kernel": len(problems)}, f"phase 15 (ii): the sharded dispatch launched {counts}")
+    for i, (a, b) in enumerate(zip(sols, refs)):
+        pa, pb = a.plan(), b.plan()
+        same = all(torch.equal(x, y) for x, y in ((a.result.u, b.result.u), (a.result.v, b.result.v),
+                                                  (a.value, b.value), (a.n_iter, b.n_iter), (a.nnz, b.nnz),
+                                                  (pa.rows, pb.rows), (pa.cols, pb.cols), (pa.vals, pb.vals)))
+        check(same and a.status_label == b.status_label, f"phase 15 (ii) problem {i}: mesh=1x1 is not bitwise mesh=None")
+    log(f"phase 15 (ii): BucketedExecutor(mesh=1x1) spar_sink_mf on {len(problems)} problems bitwise mesh=None's "
+        f"solutions (u, v, value, n_iter, nnz, status, plan); launches {counts}; {wall!r} s, mesh=None {wall_ref!r} s")
+    return total
+
+
+def run_sharded_phase(device) -> dict[str, int]:
+    """Phase 15 (see the module docstring); returns its kernel launches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t_phase = time.perf_counter()
+    procs = start_dryruns()
+    try:
+        mesh = make_test_mesh(1, 1)
+        try:
+            total, peak = sharded_train_steps(mesh, device)
+            log(f"phase 15 (i) {time.perf_counter() - t_phase!r} s")
+            t0 = time.perf_counter()
+            _launches_into(total, sharded_executor(mesh, device))
+            log(f"phase 15 (ii) {time.perf_counter() - t0!r} s")
+        finally:
+            dist.destroy_process_group()
+        t0 = time.perf_counter()
+        finish_dryruns(procs, peak)
+        log(f"phase 15 (iii) waited {time.perf_counter() - t0!r} s")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"phase 15 {time.perf_counter() - t_phase!r} s, launches {total}")
+    return total
+
+
 def profile_solve(label: str, problem, **opts) -> None:
     """Run one warm ``solve`` under `torch.profiler` and print where its
     device time goes (`profile_call`)."""
@@ -4951,6 +5185,11 @@ def main() -> int:
     run_lm_families_phase(device)
     run_applications_phase(device)
     run_new_families_phase(device)
+    phase15 = run_sharded_phase(device)
+    for entry in entries:
+        entry["launches"] += phase15.get(entry["name"], 0)
+    check(all(phase15.get(k, 0) > 0 for k in ("lru_scan_fwd", "lru_scan_bwd", "gathered_kernel")),
+          f"phase 15 launched {phase15}")
     for entry in entries:
         check(entry["launches"] > 0, f"{entry['name']} was not launched on its path")
     if profile_run:

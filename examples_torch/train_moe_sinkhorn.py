@@ -13,8 +13,10 @@ sequence 512, batch 8:
 The counterpart of ``examples/train_moe_sinkhorn.py``, through the port's
 `repro_torch.launch.train.train_loop`. Checkpoints go to ``--ckpt-dir``
 (alias ``--out-dir``); a rerun with the same directory resumes from its
-latest checkpoint instead of starting over. The port trains on one device:
-``--mesh`` takes ``1x1`` only.
+latest checkpoint instead of starting over. ``--mesh DxM`` other than
+``1x1`` (one device, no mesh) trains on a `DeviceMesh` of that shape
+(`repro_torch.launch.mesh.make_test_mesh`), which needs a process group of
+D x M ranks: run the example under ``torchrun --nproc-per-node D*M``.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ import argparse
 from repro_torch import configs
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig, TrainConfig
-from repro_torch.launch.train import train_loop
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.launch.train import _parse_mesh, train_loop
 
 HUNDRED_M = ModelConfig(
     name="moe_100m_sinkhorn",
@@ -47,16 +50,14 @@ def main(argv=None):
     ap.add_argument("--hundred-m", action="store_true")
     ap.add_argument("--steps", type=int, default=0)
     ap.add_argument("--router", default="spar_sink", choices=["softmax", "sinkhorn", "spar_sink"])
-    ap.add_argument("--mesh", default="1x1", help="DATAxMODEL; one card takes 1x1 only")
+    ap.add_argument("--mesh", default="1x1", help="DATAxMODEL; other than 1x1 needs D*M ranks (torchrun)")
     ap.add_argument("--ckpt-dir", "--out-dir", dest="ckpt_dir", default="/tmp/repro_moe_ckpt")
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.mesh != "1x1":
-        raise ValueError(f"--mesh {args.mesh}: the port trains on one device (1x1); the mesh "
-                         "(launch/mesh.py) and its sharding (distributed/sharding.py) are not ported "
-                         "yet (ROADMAP A-11.7/8)")
+    shape = _parse_mesh(args.mesh)
     device = resolve_device(args.device)
+    mesh = None if shape == (1, 1) else make_test_mesh(*shape, device_type=device.type)
     if args.hundred_m:
         cfg = HUNDRED_M.replace(router=args.router)
         tcfg = TrainConfig(seq_len=512, global_batch=8, lr=6e-4,
@@ -68,7 +69,7 @@ def main(argv=None):
                            total_steps=args.steps or 60, warmup_steps=5,
                            checkpoint_every=50, checkpoint_dir=args.ckpt_dir)
 
-    _, history = train_loop(cfg, tcfg, device=device)
+    _, history = train_loop(cfg, tcfg, device=device if mesh is None else None, mesh=mesh)
     if not history:
         print(f"nothing to train: {args.ckpt_dir} already holds step {tcfg.total_steps}")
         return {"history": history}

@@ -32,6 +32,10 @@ from collections import OrderedDict
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import distribute_tensor
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch._device import generator_at, make_generator
 from repro_torch.batch.problems import BatchedProblem, group_by_bucket
@@ -49,6 +53,7 @@ from repro_torch.core.api.solution import Solution, SparsePlan
 from repro_torch.core.sinkhorn import SinkhornResult, plan_from_potentials, plan_from_scalings
 from repro_torch.core.spar_sink import log_plan_entries
 from repro_torch.core.sparsify import LogSparseKernelCOO
+from repro_torch.distributed.sharding import leading_axis_specs
 from repro_torch.obs.certify import Certificate
 from repro_torch.obs.metrics import MetricsRegistry, default_registry
 from repro_torch.obs.trace import SolverTrace
@@ -81,8 +86,18 @@ class BucketedExecutor:
         Smallest bucket edge; supports are padded up to powers of two of at
         least this size.
     mesh:
-        Not ported yet: anything but ``None`` raises (the sharded executor
-        is queue item A-11).
+        Optional `DeviceMesh` (from `repro_torch.launch.mesh`): the batch
+        axis of each bucket's padded batch is laid out by
+        `leading_axis_specs` over the mesh's data axes. A batched problem's
+        sketch is flat and sorted across its elements, and the sorted-segment
+        reductions have no DTensor rule, so the batch is split by problem:
+        under `local_map` each data rank solves its elements' sub-batch
+        (each element still padded to `SLOT_ALIGN` slots, so every solve
+        stays bitwise its per-problem one), and the ranks' results are
+        gathered (``all_gather_object``). Every rank of the mesh must call
+        `solve_batch` with the same problems and random sources; each
+        returns every solution. A batch axis the data ranks do not divide is
+        replicated: every rank solves it all.
     metrics:
         `repro_torch.obs.MetricsRegistry` receiving the executor telemetry
         (default `repro_torch.obs.default_registry`): counters
@@ -103,11 +118,9 @@ class BucketedExecutor:
         mesh=None,
         metrics: MetricsRegistry | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "BucketedExecutor(mesh=...) is not ported yet: the sharded executor is "
-                "queue item A-11 of ROADMAP.md"
-            )
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch.distributed DeviceMesh, not {type(mesh).__name__}")
+        self.mesh = mesh
         self.cache_size = cache_size
         self.min_bucket = min_bucket
         self.metrics = default_registry if metrics is None else metrics
@@ -198,36 +211,19 @@ class BucketedExecutor:
         # the ladder's rungs draw from each source as attempt 0 found it
         starts = [g.get_state() for g in gens] if ladder_opts is not None and gens is not None else None
         out: list[Solution | None] = [None] * len(problems)
+        log_sparse = method == "spar_sink_log" or (method == "spar_sink_mf" and bool(solver_opts.get("stabilize")))
         for bucket, idxs in group_by_bucket(problems, min_size=self.min_bucket).items():
             group = [problems[i] for i in idxs]
-            # round the batch axis up to a power of two with duplicates of
-            # the last problem (dropped below): B is then drawn from a small set
-            pad = _next_pow2(len(group)) - len(group)
-            bp = BatchedProblem.from_problems(
-                group + [group[-1]] * pad, bucket=bucket, materialize_cost=method not in _COSTLESS,
-            )
-            aux = None
-            if sketch_args is not None:
-                # build only the unique sketches; pad slots reuse the last
-                # element's tensors instead of drawing again
-                s, cap = sketch_args
-                gcap = [cap[i] for i in idxs] if per_problem_caps else cap
-                aux = self._sketch_builder(method, solver_opts)(group, [gens[i] for i in idxs], s, gcap)
-                if pad:
-                    aux = _repeat_last(aux, pad)
-            b_pad = len(group) + pad
-            true_elems = sum(p.shape[0] * p.shape[1] for p in group)
-            self.metrics.observe("executor.bucket_occupancy", len(group) / b_pad)
-            self.metrics.observe("executor.padding_waste", 1.0 - true_elems / (b_pad * bucket[0] * bucket[1]))
-            t0 = time.perf_counter()
-            br = self._compiled(bucket, method, solver_opts)(bp, aux)
-            if bp.device.type == "cuda":
-                torch.cuda.synchronize(bp.device)
-            self.metrics.observe("executor.dispatch_seconds", time.perf_counter() - t0)
-            log_sparse = method == "spar_sink_log" or (method == "spar_sink_mf" and bool(solver_opts.get("stabilize")))
-            for j, i in enumerate(idxs):
-                cap_j = aux.element_cap(j) if aux is not None else None
-                out[i] = self._solution(method, problems[i], br, j, log_sparse, cap_j)
+            ggens = [gens[i] for i in idxs] if gens is not None else None
+            gcaps = [caps[i] for i in idxs] if per_problem_caps else caps
+            sketch = None if sketch_args is None else (sketch_args[0], gcaps)
+            if self.mesh is not None:
+                sols = self._solve_on_mesh(method, bucket, group, ggens, sketch, solver_opts, log_sparse)
+            else:
+                br, elem_caps = self._dispatch_group(method, bucket, group, ggens, sketch, solver_opts)
+                sols = [self._solution(method, p, br, j, log_sparse, elem_caps[j]) for j, p in enumerate(group)]
+            for i, sol in zip(idxs, sols):
+                out[i] = sol
         if ladder_opts is None:
             return out  # type: ignore[return-value]
         from repro_torch.robust.ladder import escalate_from
@@ -243,6 +239,65 @@ class BucketedExecutor:
                 opts_i["seed"] = seeds[i]
             robust_out.append(escalate_from(problems[i], method, sol, policy=policy, metrics=self.metrics, **opts_i))
         return robust_out  # type: ignore[return-value]
+
+    def _solve_on_mesh(self, method, bucket, group, gens, sketch_args, solver_opts, log_sparse) -> list[Solution]:
+        """One bucket on the mesh: the padded batch axis laid out by
+        `leading_axis_specs`, each data rank's sub-batch solved under
+        `local_map`, the results gathered; returns ``group``'s solutions."""
+        elements = torch.arange(_next_pow2(len(group)))
+        placements = list(leading_axis_specs(self.mesh, {"b": elements})["b"])
+        mine = distribute_tensor(elements, self.mesh, placements, src_data_rank=None)
+        caps = sketch_args[1] if sketch_args is not None else None
+
+        def solve_mine(local: torch.Tensor):
+            # pads repeat the last element: a rank solves its real elements only
+            ids = [j for j in local.tolist() if j < len(group)]
+            if not ids:
+                return _Solved(ids, None, [])
+            sub_sketch = None if sketch_args is None else (
+                sketch_args[0], [caps[j] for j in ids] if isinstance(caps, list) else caps)
+            br, elem_caps = self._dispatch_group(method, bucket, [group[j] for j in ids],
+                                                 [gens[j] for j in ids] if gens is not None else None,
+                                                 sub_sketch, solver_opts)
+            return _Solved(ids, br, elem_caps)
+
+        solved = local_map(solve_mine, out_placements=None, in_placements=(placements,), device_mesh=self.mesh)(mine)
+        # the solutions hold closures: gather the batched results, rebuild here
+        gathered = [None] * dist.get_world_size()
+        dist.all_gather_object(gathered, solved)
+        out: dict[int, Solution] = {}
+        for part in gathered:
+            for k, j in enumerate(part.ids):
+                if j not in out:
+                    out[j] = self._solution(method, group[j], part.result, k, log_sparse, part.caps[k])
+        return [out[j] for j in range(len(group))]
+
+    def _dispatch_group(self, method, bucket, group, gens, sketch_args, solver_opts):
+        """One bucket's batch: the problems padded to a power of two with
+        duplicates of the last (B is then drawn from a small set), the
+        unique sketches built (pad slots reuse the last element's), one
+        cached solve. Returns ``(BatchedResult, each element's sketch cap
+        or None)``."""
+        pad = _next_pow2(len(group)) - len(group)
+        bp = BatchedProblem.from_problems(
+            group + [group[-1]] * pad, bucket=bucket, materialize_cost=method not in _COSTLESS,
+        )
+        aux = None
+        if sketch_args is not None:
+            s, cap = sketch_args
+            aux = self._sketch_builder(method, solver_opts)(group, gens, s, cap)
+            if pad:
+                aux = _repeat_last(aux, pad)
+        b_pad = len(group) + pad
+        true_elems = sum(p.shape[0] * p.shape[1] for p in group)
+        self.metrics.observe("executor.bucket_occupancy", len(group) / b_pad)
+        self.metrics.observe("executor.padding_waste", 1.0 - true_elems / (b_pad * bucket[0] * bucket[1]))
+        t0 = time.perf_counter()
+        br = self._compiled(bucket, method, solver_opts)(bp, aux)
+        if bp.device.type == "cuda":
+            torch.cuda.synchronize(bp.device)
+        self.metrics.observe("executor.dispatch_seconds", time.perf_counter() - t0)
+        return br, [aux.element_cap(j) if aux is not None else None for j in range(len(group))]
 
     @staticmethod
     def _sketch_builder(method: str, solver_opts: dict):
@@ -300,6 +355,14 @@ class BucketedExecutor:
             domain = "scaling"
         return Solution(method=method, problem=problem, value=br.value[j], result=res, domain=domain,
                         certificate=cert, _plan_thunk=thunk)
+
+
+class _Solved:
+    """A rank's batched result and the element indices it holds: one opaque
+    output of `local_map` (not a tree of tensors to place)."""
+
+    def __init__(self, ids: list[int], result: BatchedResult | None, caps: list):
+        self.ids, self.result, self.caps = ids, result, caps
 
 
 def _repeat_last(sketch: BatchedSketch, pad: int) -> BatchedSketch:

@@ -5,16 +5,18 @@ from repro_torch.configs.base import (
     SUBQUADRATIC,
     ModelConfig,
     TrainConfig,
+    cells,
     get,
     shape_of,
 )
 
 __all__ = [
     "ARCH_IDS",
+    "ModelConfig",
     "SHAPES",
     "SUBQUADRATIC",
-    "ModelConfig",
     "TrainConfig",
+    "cells",
     "get",
     "shape_of",
 ]

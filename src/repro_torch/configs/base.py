@@ -2,7 +2,7 @@
 
 The port's own copy of the reference's ``repro.configs.base`` (pure
 Python, so it is copied, not imported): `ModelConfig` with every field and
-default, `SHAPES`, `ARCH_IDS` and `get`. Each ported architecture has one
+default, `SHAPES`, `ARCH_IDS`, `get` and `cells`. Each ported architecture has one
 module in this package defining ``CONFIG`` (the published numbers) and
 ``SMOKE`` (a reduced config of the same family for CPU tests); all ten of
 the reference's architectures are here. `TrainConfig` holds a training
@@ -15,7 +15,7 @@ import importlib
 from dataclasses import dataclass
 from typing import Literal
 
-__all__ = ["ARCH_IDS", "SHAPES", "SUBQUADRATIC", "ModelConfig", "TrainConfig", "get", "shape_of"]
+__all__ = ["ARCH_IDS", "SHAPES", "SUBQUADRATIC", "ModelConfig", "TrainConfig", "cells", "get", "shape_of"]
 
 ARCH_IDS = (
     "olmoe_1b_7b",
@@ -155,3 +155,16 @@ def get(name: str) -> ModelConfig:
 
 def shape_of(shape_name: str) -> tuple[int, int, str]:
     return SHAPES[shape_name]
+
+
+def cells(include_long: bool = True):
+    """All assigned (arch, shape) dry-run cells, honouring the long_500k skip."""
+    out = []
+    for a in ARCH_IDS:
+        for s in SHAPES:
+            if s == "long_500k" and a not in SUBQUADRATIC:
+                continue
+            if not include_long and s == "long_500k":
+                continue
+            out.append((a, s))
+    return out

@@ -9,10 +9,19 @@ The reference's TPU tiling arguments (``block_n``, ``block_m``, ``block_s``)
 and ``interpret`` are not carried over, nor is its padding of the inputs to
 whole tiles: the CUDA kernels size their own tiles and mask their edges,
 and the CPU runs the plain versions.
+
+The kernels on the sharded paths (`lru_scan`, B5 and B6;
+`gathered_sketch_kernel` and `gathered_sketch_cost`, B1) take DTensors
+through `torch.distributed.tensor.experimental.local_map`, which declares
+their placements and runs the kernel on each rank's local shard; plain
+tensors pass through the same `local_map` unchanged. A DTensor placed
+otherwise than the wrapper declares raises: no wrapper redistributes.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.core.sinkhorn import SinkhornResult, generic_scaling_loop
 from repro_torch.kernels.block_ell import BlockEllColumns, _launch_block_ell_matvec, _launch_block_ell_rmatvec
@@ -156,13 +165,34 @@ def gathered_cost(
     return _gathered(_launch_gathered_cost, x, y, rows, cols, (torch.float64,), True, cost=cost, eta=eta)[0]
 
 
-def gathered_sketch_kernel(x, y, rows, cols, *, eps: float, cost: str, eta: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """`gathered_kernel` as the matrix-free sketch calls it
-    (`repro_torch.core.api.build_mf_sketch`): no argument check and no flag,
-    so no host sync. The sketch's draw makes contiguous int64 indices in
-    range (`repro_torch.core.sparsify._draw` clamps rows to n - 1 and
-    columns to m - 1); an index out of range would still read no point and
-    come out NaN. CPU tensors run `gathered_kernel_ref`."""
+def _placed(t):
+    """A DTensor's placements as `local_map` takes one input's (a list:
+    a tuple would read as one entry an output); None for a tensor."""
+    return list(t.placements) if isinstance(t, DTensor) else None
+
+
+def _pair_placements(name: str, x, y, rows, cols):
+    """The placements of a gathered kernel's outputs under `local_map`:
+    the points replicated, the pairs sharded along k (``Shard(0)``) or
+    replicated, rows and cols alike; ``None`` for plain tensors. Anything
+    else raises: no wrapper redistributes to make its kernel run."""
+    dts = [isinstance(t, DTensor) for t in (x, y, rows, cols)]
+    if not any(dts):
+        return None
+    if not all(dts):
+        raise TypeError(f"{name}: pass the points and the pairs all as DTensors or all as tensors")
+    for t, what in ((x, "x"), (y, "y")):
+        if any(not isinstance(p, Replicate) for p in t.placements):
+            raise ValueError(f"{name}: the points {what} must be replicated; got {t.placements}")
+    if rows.placements != cols.placements:
+        raise ValueError(f"{name}: rows and cols must be placed alike; got {rows.placements}, {cols.placements}")
+    for p in rows.placements:
+        if not (isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim == 0)):
+            raise ValueError(f"{name}: the pairs may be sharded along k or replicated; got {rows.placements}")
+    return list(rows.placements)
+
+
+def _sketch_kernel_local(x, y, rows, cols, eps, cost, eta):
     if x.device.type == "cpu":
         return gathered_kernel_ref(x, y, rows, cols, eps=eps, cost=cost, eta=eta)
     k_e, c_e = _gathered(_launch_gathered_kernel, x, y, rows, cols, (torch.float32, torch.float32), False,
@@ -170,14 +200,38 @@ def gathered_sketch_kernel(x, y, rows, cols, *, eps: float, cost: str, eta: floa
     return k_e, c_e
 
 
-def gathered_sketch_cost(x, y, rows, cols, *, cost: str, eta: float) -> torch.Tensor:
-    """`gathered_cost` as the log-domain sketch calls it
-    (`repro_torch.core.api.build_mf_log_sketch`), unchecked and without a
-    host sync, as `gathered_sketch_kernel`. CPU tensors run
-    `gathered_cost_ref`."""
+def _sketch_cost_local(x, y, rows, cols, cost, eta):
     if x.device.type == "cpu":
         return gathered_cost_ref(x, y, rows, cols, cost=cost, eta=eta)
     return _gathered(_launch_gathered_cost, x, y, rows, cols, (torch.float64,), False, cost=cost, eta=eta)[0]
+
+
+def gathered_sketch_kernel(x, y, rows, cols, *, eps: float, cost: str, eta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """`gathered_kernel` as the matrix-free sketch calls it
+    (`repro_torch.core.api.build_mf_sketch`): no argument check and no flag,
+    so no host sync. The sketch's draw makes contiguous int64 indices in
+    range (`repro_torch.core.sparsify._draw` clamps rows to n - 1 and
+    columns to m - 1); an index out of range would still read no point and
+    come out NaN. CPU tensors run `gathered_kernel_ref`.
+
+    DTensors go through `local_map`: ``x`` and ``y`` replicated, ``rows``
+    and ``cols`` sharded along the pairs (or replicated); each rank's
+    kernel computes its own pairs, and the outputs are placed as ``rows``."""
+    pl = _pair_placements("gathered_sketch_kernel", x, y, rows, cols)
+    run = local_map(_sketch_kernel_local, out_placements=(pl, pl),
+                    in_placements=(_placed(x), _placed(y), pl, pl, None, None, None))
+    return run(x, y, rows, cols, eps, cost, eta)
+
+
+def gathered_sketch_cost(x, y, rows, cols, *, cost: str, eta: float) -> torch.Tensor:
+    """`gathered_cost` as the log-domain sketch calls it
+    (`repro_torch.core.api.build_mf_log_sketch`), unchecked and without a
+    host sync, as `gathered_sketch_kernel`, and under the same `local_map`
+    for DTensors. CPU tensors run `gathered_cost_ref`."""
+    pl = _pair_placements("gathered_sketch_cost", x, y, rows, cols)
+    run = local_map(_sketch_cost_local, out_placements=pl,
+                    in_placements=(_placed(x), _placed(y), pl, pl, None, None))
+    return run(x, y, rows, cols, cost, eta)
 
 
 def _online(name: str, ref, launch, x, y, w, *, eps: float, cost: str, eta: float) -> torch.Tensor:
@@ -554,6 +608,30 @@ class _LruScan(torch.autograd.Function):
         return (da if want_a else None), (db if want_b else None)
 
 
+def _lru_scan_local(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("lru_scan: a and b must be contiguous")
+    _one_device("lru_scan", a, b)
+    return _LruScan.apply(a, b)
+
+
+def _scan_placements(a, b):
+    """The placements of `lru_scan` under `local_map` (``None`` for plain
+    tensors): a and b placed alike, sharded on B or W or replicated. A
+    shard on S raises, since the recurrence runs along S, and so does a
+    partial sum; no redistribution is made here."""
+    if not (isinstance(a, DTensor) or isinstance(b, DTensor)):
+        return None
+    if not (isinstance(a, DTensor) and isinstance(b, DTensor)) or a.placements != b.placements:
+        raise ValueError("lru_scan: a and b must both be DTensors placed alike, or both tensors")
+    for p in a.placements:
+        if isinstance(p, Shard) and p.dim % 3 == 1:
+            raise ValueError(f"lru_scan: the recurrence runs along S, which must not be sharded; got {a.placements}")
+        if not isinstance(p, (Shard, Replicate)):
+            raise ValueError(f"lru_scan: a and b must be sharded on B or W, or replicated; got {a.placements}")
+    return list(a.placements)
+
+
 def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The linear recurrence ``h_t = a_t h_{t-1} + b_t`` along S, with
     ``h_{-1} = 0``: ``(B, S, W), (B, S, W) -> (B, S, W)`` float32.
@@ -564,12 +642,14 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     gradient is the reverse scan, kernel B6 on CUDA tensors
     (`lru_scan_bwd_ref` on CPU ones), which gives ``db = lam`` and
     ``da = lam h_{t-1}`` in one pass.
+
+    DTensors go through `local_map`: each rank scans its local shard
+    (sharded on B or W; S unsharded), forward and backward, and the output
+    is placed as ``a``.
     """
     if a.ndim != 3 or a.shape != b.shape:
         raise ValueError(f"lru_scan: a and b must be (B, S, W) of one shape; got {tuple(a.shape)}, {tuple(b.shape)}")
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError(f"lru_scan: a and b must be float32; got {a.dtype}, {b.dtype}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("lru_scan: a and b must be contiguous")
-    _one_device("lru_scan", a, b)
-    return _LruScan.apply(a, b)
+    pl = _scan_placements(a, b)
+    return local_map(_lru_scan_local, out_placements=pl, in_placements=(pl, pl))(a, b)

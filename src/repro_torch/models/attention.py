@@ -2,8 +2,11 @@
 softmax, sliding-window and bidirectional masks, cross-attention, and
 KV-cache decode with ring buffers for windowed layers.
 
-The counterpart of the reference's ``repro.models.attention``, without the
-sharding constraints (no-ops on one card). The query-chunked formulation
+The counterpart of the reference's ``repro.models.attention``, with its
+decode K/V pin (`constrain`, a no-op without a mesh). Under a mesh a head
+split whose width is sharded unevenly replicates that width first
+(`unshard_for_split`), as GSPMD does, and attention runs on each rank's
+heads (`local_apply`). The query-chunked formulation
 (a loop over query tiles against the full K/V) keeps the score memory at
 (B, Hkv, rep, chunk, S) instead of (B, H, S, S). Scores are computed for
 the whole chunk x S and then masked, as in the reference: at S = 32768
@@ -18,12 +21,15 @@ that decode steps skip those projections (`cross_attention_cached`).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.layout import local_apply, unshard_for_merge, unshard_for_split
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import dense, dense_init, rms_norm, rms_norm_init, rope
 
 __all__ = [
@@ -56,8 +62,18 @@ def init_attention(generator, cfg: ModelConfig, device, dtype=torch.float32, cro
 
 
 def _split_heads(x, n_heads, head_dim):
+    """(B, S, n_heads * head_dim) -> (B, S, n_heads, head_dim); a DTensor
+    whose width is sharded by a count that does not divide ``n_heads`` is
+    replicated along those mesh dims first, as GSPMD does."""
     b, s, _ = x.shape
-    return x.reshape(b, s, n_heads, head_dim)
+    return unshard_for_split(x, -1, n_heads).reshape(b, s, n_heads, head_dim)
+
+
+# the named axes of `_gqa_attend`'s operands (`local_apply`): batch, KV
+# heads (a query's heads are its KV head's, rep apiece) and head_dim
+_QKV = ("b", None, "h", "d")  # q (B,C,H,hd), k and v (B,S,Hkv,hd)
+_SCORES = ("b", "h", None, None, None)  # (B,Hkv,rep,C,S)
+_MASK = ("b", None, None)  # (B,C,S)
 
 
 def _gqa_attend(q, k, v, mask, scale, grouped_out: bool = False):
@@ -66,18 +82,33 @@ def _gqa_attend(q, k, v, mask, scale, grouped_out: bool = False):
     q (B,C,H,hd), k/v (B,S,Hkv,hd), mask (B,C,S) -> (B,C,H,hd), or
     (B,C,Hkv,rep,hd) with ``grouped_out``. Scores in float32, masked
     entries at -1e30, softmax weights cast to ``v.dtype``.
+
+    DTensors run on each rank's shards (`local_apply`): the batch and the
+    KV heads where they divide, and a head_dim that K shards (the decode
+    cache's layout) stays sharded: the scores are then summed over its
+    shards (one all-reduce of (B, H, C, S)) and K/V never move.
     """
+    scores = local_apply(functools.partial(_scores, scale=scale), k, q, axes=(_QKV, _QKV), out=_SCORES, sums=("d",))
+    out_axes = ("b", None, "h", None, "d") if grouped_out else _QKV
+    return local_apply(functools.partial(_weigh, grouped_out=grouped_out), v, scores, mask,
+                       axes=(_QKV, _SCORES, _MASK), out=out_axes)
+
+
+def _scores(k, q, scale):
     b, c, h, d = q.shape
     hkv = k.shape[2]
-    rep = h // hkv
-    qg = q.reshape(b, c, hkv, rep, d)
-    scores = torch.einsum("bcgrd,bsgd->bgrcs", qg, k).to(torch.float32) * scale
+    qg = q.reshape(b, c, hkv, h // hkv, d)
+    return torch.einsum("bcgrd,bsgd->bgrcs", qg, k).to(torch.float32) * scale
+
+
+def _weigh(v, scores, mask, grouped_out: bool):
     scores = torch.where(mask[:, None, None, :, :], scores, _NEG)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bgrcs,bsgd->bcgrd", w, v)
     if grouped_out:
         return out
-    return out.reshape(b, c, h, d)
+    b, c, g, r, d = out.shape
+    return out.reshape(b, c, g * r, d)
 
 
 def _project_qkv(params, x, cfg: ModelConfig, positions, dtype):
@@ -119,7 +150,7 @@ def attention(
         in_window = torch.abs(rel) < window if window > 0 else torch.ones_like(visible)
         mask = (visible & in_window)[None].expand(b, chunk, s)
         outs.append(_gqa_attend(q[:, c0 : c0 + chunk], k, v, mask, scale))
-    out = torch.cat(outs, dim=1).reshape(b, s, cfg.q_dim)
+    out = unshard_for_merge(torch.cat(outs, dim=1), 2, 4).reshape(b, s, cfg.q_dim)
     return dense(params["wo"], out, dtype)
 
 
@@ -138,7 +169,7 @@ def _cross_attend(params, x, k, v, cfg: ModelConfig):
     q = _split_heads(dense(params["wq"], x, dtype), cfg.num_heads, cfg.head_dim)
     mask = torch.ones((b, s, k.shape[1]), dtype=torch.bool, device=x.device)
     out = _gqa_attend(q, k, v, mask, cfg.head_dim**-0.5)
-    return dense(params["wo"], out.reshape(b, s, cfg.q_dim), dtype)
+    return dense(params["wo"], unshard_for_merge(out, 2, 4).reshape(b, s, cfg.q_dim), dtype)
 
 
 def cross_attention_cached(
@@ -215,7 +246,15 @@ def attention_decode(
     slot = (pos % s_cache) if ring else min(pos, s_cache - 1)
     cache.k[:, slot : slot + 1] = k_new.to(cache.k.dtype)
     cache.v[:, slot : slot + 1] = v_new.to(cache.v.dtype)
-    kf, vf = cache.k.to(dtype), cache.v.to(dtype)
+    if ring:
+        # windowed ring caches are small by construction: not pinned
+        kf, vf = cache.k.to(dtype), cache.v.to(dtype)
+    else:
+        # pin K/V to the cache layout (batch -> dp, head_dim -> tp), as the
+        # reference does: the scores contract the tp-sharded head_dim where
+        # the cache lies, and only they are reduced
+        kf = constrain(cache.k.to(dtype), ("dp", "sp", None, "tp"))
+        vf = constrain(cache.v.to(dtype), ("dp", "sp", None, "tp"))
     idx = torch.arange(s_cache, device=x.device)
     if ring:
         age = (slot - idx) % s_cache  # 0 = newest entry
@@ -226,8 +265,7 @@ def attention_decode(
             valid = valid & (pos - idx < window)
     mask = valid[None, None, :].expand(b, 1, s_cache)
     out = _gqa_attend(q, kf, vf, mask, cfg.head_dim**-0.5, grouped_out=True)
-    # grouped output projection: contract (g, r, hd) against wo directly
-    rep = cfg.num_heads // cfg.num_kv_heads
-    wo3 = params["wo"]["w"].to(dtype).reshape(cfg.num_kv_heads, rep, cfg.head_dim, cfg.d_model)
-    y = torch.einsum("bcgrd,grdm->bcm", out, wo3)
-    return y, cache
+    # (g, r, hd) merged with the KV heads outermost (wo's row order), a
+    # sharded head_dim gathered first (B x q_dim: a token's worth)
+    out = unshard_for_merge(out, 2, 5).reshape(b, 1, cfg.q_dim)
+    return out @ params["wo"]["w"].to(dtype), cache

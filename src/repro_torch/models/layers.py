@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.layout import replicated
+
 __all__ = [
     "dense_init",
     "dense",
@@ -106,8 +108,14 @@ def embed_init(gen, vocab: int, d: int, device, dtype=torch.float32):
 
 
 def embed(params, tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    """Rows ``tokens`` of the table, cast to ``dtype``: (B, S) -> (B, S, D)."""
-    return params["w"][tokens].to(dtype)
+    """Rows ``tokens`` of the table, cast to ``dtype``: (B, S) -> (B, S, D).
+
+    DTensor tokens are replicated first (a few bytes a token): the gather's
+    index and the table's FSDP shards conflict, which GSPMD resolves by
+    unsharding the batch too (the caller re-shards it, the reference's G5
+    `constrain`), and some DTensor versions refuse a batch sharded over two
+    mesh dims (pod and data) in the gather."""
+    return params["w"][replicated(tokens)].to(dtype)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -121,7 +129,9 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``sum_i pad(x)[:, i : i + S] * w[i]`` with K - 1 zeros in front, summed
     left to right (RG-LRU's and Mamba-2's). x (B, S, C), w (K, C)."""
     k = w.shape[0]
-    pad = F.pad(x, (0, 0, k - 1, 0))
+    # K - 1 zeros in front by a concatenation (the values of F.pad's, which
+    # some DTensor versions give one placement on a mesh of two dims)
+    pad = torch.cat([x.new_zeros((x.shape[0], k - 1, x.shape[2])), x], dim=1)
     s = x.shape[1]
     out = pad[:, 0:s, :] * w[0][None, None, :]
     for i in range(1, k):

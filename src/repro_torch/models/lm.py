@@ -55,10 +55,12 @@ import functools
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch._device import generator_at, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
@@ -137,11 +139,18 @@ def layer_windows(cfg: ModelConfig) -> list[int]:
     return [cfg.sliding_window] * cfg.num_layers
 
 
-def init_params(cfg: ModelConfig, seed_or_generator: int | torch.Generator = 0, device=None):
+def init_params(cfg: ModelConfig, seed_or_generator: int | torch.Generator = 0, device=None, place=None):
     """Random float32 master parameters, drawn on ``device`` (``None`` means
     the card) from a `torch.Generator` (or one seeded with the int given).
     On ``device="meta"`` nothing is drawn or allocated: the shapes alone,
-    for `param_count` of a full config."""
+    for `param_count` of a full config.
+
+    ``place(path, subtree)``, if given, receives each top-level entry and
+    each layer's block as soon as it is drawn (``path`` its keys and list
+    indices from the root) and returns what the tree keeps in its place:
+    the sharded init lays each one out on its mesh and frees the drawn
+    whole, so that no more than one entry is ever whole on the device.
+    The draws are the same with or without it."""
     dev = resolve_device(device)
     if dev.type == "meta":
         gen = None
@@ -152,39 +161,45 @@ def init_params(cfg: ModelConfig, seed_or_generator: int | torch.Generator = 0, 
     else:
         gen = torch.Generator(device=dev).manual_seed(int(seed_or_generator))
     dtype = torch_dtype(cfg.param_dtype)
+    put = place or (lambda path, tree: tree)
     params = {
-        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dev, dtype),
-        "final_norm": rms_norm_init(cfg.d_model, dev, dtype),
+        "embed": put(("embed",), embed_init(gen, cfg.vocab_size, cfg.d_model, dev, dtype)),
+        "final_norm": put(("final_norm",), rms_norm_init(cfg.d_model, dev, dtype)),
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dev, dtype)
+        params["unembed"] = put(("unembed",), embed_init(gen, cfg.vocab_size, cfg.d_model, dev, dtype))
     fam = cfg.family
     if fam in ("dense", "moe"):
-        params["blocks"] = [_init_attn_block(gen, cfg, dev, dtype) for _ in range(cfg.num_layers)]
+        params["blocks"] = [put(("blocks", i), _init_attn_block(gen, cfg, dev, dtype)) for i in range(cfg.num_layers)]
     elif fam == "ssm":
         params["blocks"] = [
-            {"ln1": rms_norm_init(cfg.d_model, dev, dtype), "ssm": ssm_lib.init_ssm(gen, cfg, dev, dtype)}
-            for _ in range(cfg.num_layers)
+            put(("blocks", i), {"ln1": rms_norm_init(cfg.d_model, dev, dtype),
+                                "ssm": ssm_lib.init_ssm(gen, cfg, dev, dtype)})
+            for i in range(cfg.num_layers)
         ]
     elif fam == "hybrid":
         pat = cfg.block_pattern
         params["blocks"] = [
-            _init_rglru_block(gen, cfg, dev, dtype)
-            if pat[i % len(pat)] == "rglru"
-            else _init_attn_block(gen, cfg, dev, dtype)
+            put(("blocks", i), _init_rglru_block(gen, cfg, dev, dtype)
+                if pat[i % len(pat)] == "rglru"
+                else _init_attn_block(gen, cfg, dev, dtype))
             for i in range(cfg.num_layers)
         ]
     elif fam == "vlm":
         period = cfg.cross_attn_period
         n_groups = cfg.num_layers // period
         params["blocks"] = [
-            [_init_attn_block(gen, cfg, dev, dtype) for _ in range(period - 1)] for _ in range(n_groups)
+            [put(("blocks", g, i), _init_attn_block(gen, cfg, dev, dtype)) for i in range(period - 1)]
+            for g in range(n_groups)
         ]
-        params["cross_blocks"] = [_init_attn_block(gen, cfg, dev, dtype, cross=True) for _ in range(n_groups)]
+        params["cross_blocks"] = [put(("cross_blocks", g), _init_attn_block(gen, cfg, dev, dtype, cross=True))
+                                  for g in range(n_groups)]
     elif fam == "audio":
-        params["encoder"] = [_init_attn_block(gen, cfg, dev, dtype) for _ in range(cfg.encoder_layers)]
-        params["enc_norm"] = rms_norm_init(cfg.d_model, dev, dtype)
-        params["blocks"] = [_init_decoder_block(gen, cfg, dev, dtype) for _ in range(cfg.num_layers)]
+        params["encoder"] = [put(("encoder", i), _init_attn_block(gen, cfg, dev, dtype))
+                             for i in range(cfg.encoder_layers)]
+        params["enc_norm"] = put(("enc_norm",), rms_norm_init(cfg.d_model, dev, dtype))
+        params["blocks"] = [put(("blocks", i), _init_decoder_block(gen, cfg, dev, dtype))
+                            for i in range(cfg.num_layers)]
     else:
         raise ValueError(fam)
     return params
@@ -313,11 +328,14 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, extras=None, *,
     dtype = torch_dtype(cfg.dtype)
     s = tokens.shape[1]
     x = embed(params["embed"], tokens, dtype)
+    # re-assert the batch sharding after the embedding gather (the
+    # reference's G5): without it the activations run unsharded on the batch
+    x = constrain(x, ("dp", None, None))
     positions = torch.arange(s, device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     fam = cfg.family
     if fam in ("dense", "moe"):
-        if cfg.is_moe and generator is None:
+        if cfg.is_moe and generator is None and tokens.device.type != "meta":
             generator = torch.Generator(device=tokens.device).manual_seed(0)
         for p, w in zip(params["blocks"], layer_windows(cfg)):
             x, a = _remat(cfg, _attn_ffn_block, p, x, positions, cfg, w,
@@ -362,7 +380,7 @@ def loss_fn(params, batch, cfg: ModelConfig, generator: torch.Generator | None =
     reference takes the target logit as a masked sum over the vocabulary
     (to suit GSPMD's sharded vocab); a sum of zeros and one logit is that
     logit exactly, so `torch.gather` gives the same bits without the
-    (B, S, V) mask.
+    (B, S, V) mask. DTensor logits (under a mesh) take the masked sum.
     """
     tokens = batch["tokens"]
     extras = {k: v for k, v in batch.items() if k != "tokens"}
@@ -371,7 +389,13 @@ def loss_fn(params, batch, cfg: ModelConfig, generator: torch.Generator | None =
     targets = tokens[:, 1:].long()
     m = torch.amax(logits, dim=-1, keepdim=True).detach()
     lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
-    tgt_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        # the reference's iota mask summed over the (model-sharded) vocab:
+        # DTensor has no sound rule for a gather along a sharded vocab
+        vocab_iota = torch.arange(logits.shape[-1], device=logits.device)
+        tgt_logit = torch.sum(torch.where(vocab_iota == targets[..., None], logits, 0.0), dim=-1)
+    else:
+        tgt_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
     ce = torch.mean(lse - tgt_logit)
     zl = z_loss * torch.mean(lse**2)
     total = ce + zl + cfg.aux_loss_weight * aux
@@ -476,6 +500,7 @@ def decode_step(params, state, tokens: torch.Tensor, pos: int, cfg: ModelConfig,
     and unlike its `forward` (C-15)."""
     dtype = torch_dtype(cfg.dtype)
     x = embed(params["embed"], tokens, dtype)
+    x = constrain(x, ("dp", None, None))  # see forward(): G5
     fam = cfg.family
     if fam in ("dense", "moe"):
         kv = state["kv"]

@@ -32,12 +32,14 @@ the reference's results and make them repeatable on the card:
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.layout import local_apply
 from repro_torch.models.layers import _normal, dense_init
 
 __all__ = ["init_moe", "moe_ffn", "sinkhorn_router_probs"]
@@ -89,7 +91,10 @@ def _fixed_sinkhorn(logK: torch.Tensor, loga: torch.Tensor, logb: torch.Tensor, 
 
 def _uniforms(shape, generator: torch.Generator | None, device) -> torch.Tensor:
     """The spar_sink router's U[0, 1) draws, float32, from ``generator``
-    (``None``: a new generator on ``device`` seeded 0)."""
+    (``None``: a new generator on ``device`` seeded 0). On ``meta`` (the
+    dry-run) an empty tensor: shapes only, nothing drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     return torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
@@ -158,7 +163,16 @@ def _route(probs: torch.Tensor, cfg: ModelConfig, cap: int):
     return topk_idx, keep_w, keep_idx
 
 
-def _combine(y: torch.Tensor, topk_idx: torch.Tensor, keep_idx: torch.Tensor, s: int) -> torch.Tensor:
+def _combine(y, topk_idx, keep_idx, s: int):
+    """`_combine_local`, on each rank's sequences for DTensors
+    (`local_apply`): every expert's output gathered to its tokens' ranks
+    (the combine's all-to-all), the batch kept on its shards where it
+    divides."""
+    return local_apply(functools.partial(_combine_local, s=s), y, topk_idx, keep_idx,
+                       axes=(("b", None, None, None), ("b", None, None), ("b", None, None)), out=("b", None, None))
+
+
+def _combine_local(y: torch.Tensor, topk_idx: torch.Tensor, keep_idx: torch.Tensor, s: int) -> torch.Tensor:
     """The reference's scatter-add of expert outputs ``y`` (B, E, cap, D)
     back to token slots, with no atomics: each token gathers the slot of
     each expert it chose (if that expert kept it) and adds them in expert
@@ -181,6 +195,24 @@ def _combine(y: torch.Tensor, topk_idx: torch.Tensor, keep_idx: torch.Tensor, s:
     return out
 
 
+def _expert_products(wi, wg, wo, xe):
+    h = torch.einsum("becd,edf->becf", xe, wi)
+    g = torch.einsum("becd,edf->becf", xe, wg)
+    return torch.einsum("becf,efd->becd", h * F.silu(g), wo)
+
+
+def _experts(xe, wi, wg, wo):
+    """The expert SwiGLU on the dispatched tokens xe (B, E, cap, D) ->
+    (B, E, cap, D). DTensors run expert-parallel (`local_apply`): the
+    experts sharded where ``wi`` shards them (EP, the weights first so
+    that their layout leads), the tokens on their batch shards and those
+    experts, the weights' FSDP shards gathered; each rank computes its own
+    experts for its own sequences."""
+    w_axes = ("e", None, None)
+    return local_apply(_expert_products, wi, wg, wo, xe, axes=(w_axes, w_axes, w_axes, ("b", "e", None, None)),
+                       out=("b", "e", None, None))
+
+
 def moe_ffn(
     params,
     x: torch.Tensor,  # (B, S, D)
@@ -198,9 +230,7 @@ def moe_ffn(
     topk_idx, keep_w, keep_idx = _route(probs, cfg, cap)
 
     xe = x[torch.arange(b, device=x.device)[:, None, None], keep_idx]  # (B, E, cap, D)
-    h = torch.einsum("becd,edf->becf", xe, params["wi"].to(dtype))
-    g = torch.einsum("becd,edf->becf", xe, params["wg"].to(dtype))
-    y = torch.einsum("becf,efd->becd", h * F.silu(g), params["wo"].to(dtype))
+    y = _experts(xe, params["wi"].to(dtype), params["wg"].to(dtype), params["wo"].to(dtype))
     y = y * keep_w[..., None].to(dtype)
     out = _combine(y, topk_idx, keep_idx, s)
 

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.layout import layout_as, unshard, unshard_for_split
 from repro_torch.kernels.ops import lru_scan
 from repro_torch.kernels.ref import linear_scan
 from repro_torch.models.layers import _causal_conv, _normal, _softplus, dense_init
@@ -74,8 +75,8 @@ def _scan_chunked(a, b, q: int):
     if s % q != 0 or s <= q:
         return _scan_assoc(a, b)
     nc = s // q
-    ac = a.reshape(bsz, nc, q, w)
-    bc = b.reshape(bsz, nc, q, w)
+    ac = unshard_for_split(a, 1, nc).reshape(bsz, nc, q, w)
+    bc = unshard_for_split(b, 1, nc).reshape(bsz, nc, q, w)
     a_cum, h_intra = linear_scan(ac, bc, 2)
     # carry across chunks: H_c = A_c H_{c-1} + h_last_c
     big_a = a_cum[:, :, -1, :]
@@ -96,7 +97,10 @@ def rglru_forward(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     b_seq = bi * u.to(torch.float32)
 
     if cfg.rglru_backend == "pallas":
-        h = lru_scan(a, b_seq)
+        # a DTensor's shard on S replicated (the recurrence runs along S),
+        # a partial sum reduced, and b laid out as a: lru_scan's layout
+        a = unshard(a, 1)
+        h = lru_scan(a, layout_as(b_seq, a))
     elif cfg.rglru_backend == "chunked":
         h = _scan_chunked(a, b_seq, cfg.rglru_chunk or 256)
     else:

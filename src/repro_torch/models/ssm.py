@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.layout import even_layout, local_apply, unshard, unshard_for_merge, unshard_for_split
 from repro_torch.models import layers
 from repro_torch.models.layers import _normal, _softplus, dense_init, rms_norm, rms_norm_init
 
@@ -69,11 +70,24 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _split_proj(params, x, cfg: ModelConfig, dtype):
     d_in, heads, state = _dims(cfg)
-    zxbcdt = x @ params["in_proj"]["w"].to(dtype)
+    # under a mesh: the projection's weight gathered along d_model (its
+    # output width, 3352 at full size, divides no model axis, so the
+    # product would only leave partial sums), and an uneven shard
+    # replicated before the slices (DTensor would otherwise shard the
+    # heads' width, 24 over 16, and then refuse its reshapes)
+    zxbcdt = even_layout(x @ unshard(params["in_proj"]["w"], 0).to(dtype))
     z = zxbcdt[..., :d_in]
     xbc = zxbcdt[..., d_in : 2 * d_in + 2 * state]
     dt = zxbcdt[..., 2 * d_in + 2 * state :]
     return z, xbc, dt
+
+
+# the named axes of a chunked (B, nc, Q, H) tensor: the cumsum runs along Q
+_CHUNKS = ("b", "c", None, "h")
+
+
+def _cumsum_steps(x: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(x, dim=2)
 
 
 def _combine(e1, e2):
@@ -121,8 +135,11 @@ def ssm_forward(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     nc = s // q
 
     z, xbc, dt = _split_proj(params, x, cfg, dtype)
-    xbc = _causal_conv(xbc, params["conv_w"].to(dtype))
-    xs_c = xbc[..., :d_in].reshape(b, nc, q, heads, hd).to(work)
+    # under a mesh, the splits of S into chunks and of d_in into heads
+    # replicate a sharding that does not divide them, as GSPMD does
+    xbc = unshard_for_split(_causal_conv(xbc, params["conv_w"].to(dtype)), 1, nc)
+    dt = unshard_for_split(dt, 1, nc)
+    xs_c = unshard_for_split(xbc[..., :d_in], -1, heads).reshape(b, nc, q, heads, hd).to(work)
     B_c = xbc[..., d_in : d_in + n].reshape(b, nc, q, n).to(work)  # group-shared
     C_c = xbc[..., d_in + n :].reshape(b, nc, q, n).to(work)
     del xbc
@@ -130,12 +147,19 @@ def ssm_forward(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = _softplus(dt.to(work) + params["dt_bias"].to(work))
     A = -torch.exp(params["A_log"].to(work))  # (H,)
     dt_c = dt.reshape(b, nc, q, heads)
-    cum = torch.cumsum((dt * A[None, None, :]).reshape(b, nc, q, heads), dim=2)  # (B,nc,Q,H)
+    # the cumsum along a chunk's steps, on each rank's shards for DTensors:
+    # not every DTensor version has a rule for its backward's flip
+    cum = local_apply(_cumsum_steps, (dt * A[None, None, :]).reshape(b, nc, q, heads),
+                      axes=(_CHUNKS,), out=_CHUNKS)  # (B,nc,Q,H)
 
-    # intra-chunk (quadratic in Q); masked after the exponential, as in the reference
+    # intra-chunk (quadratic in Q). The exponent is masked before the exp,
+    # where the reference masks after it: above the diagonal cum_q - cum_p
+    # is positive and overflows once a chunk's decay passes ~88, and the
+    # backward's 0 * inf turned the gradients NaN (ROADMAP C-16). exp(-inf)
+    # is the reference's 0, so the forward is bitwise the same.
     rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # cum_q - cum_p
     causal = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
-    L = torch.where(causal[None, None, :, :, None], torch.exp(rel), 0.0)
+    L = torch.exp(torch.where(causal[None, None, :, :, None], rel, float("-inf")))
     del rel
     cb = torch.einsum("bcqn,bcpn->bcqp", C_c, B_c)
     w = cb[:, :, :, :, None] * L * dt_c[:, :, None, :, :]  # (B,nc,Q,Q,H)
@@ -177,6 +201,14 @@ def init_ssm_state(cfg: ModelConfig, batch: int, dtype=torch.float32, device=Non
     )
 
 
+def _decode_update(h, decay, dtt, Bt, Ct, xt, D):
+    """The state update and readout of one token: ``(y (B, H, hd), h_new
+    (B, H, N, hd))``."""
+    h_new = decay[:, :, None, None] * h + torch.einsum("bh,bn,bhd->bhnd", dtt, Bt, xt)
+    y = torch.einsum("bn,bhnd->bhd", Ct, h_new) + D[None, :, None] * xt
+    return y, h_new
+
+
 def ssm_decode(params, x: torch.Tensor, state: SSMState, cfg: ModelConfig):
     """One-token step. x (B, 1, D) -> (y (B, 1, D), the new state); the
     state update in `ssm_forward`'s precision."""
@@ -191,16 +223,20 @@ def ssm_decode(params, x: torch.Tensor, state: SSMState, cfg: ModelConfig):
     xbc1 = F.silu(torch.sum(window * params["conv_w"].to(dtype)[None], dim=1))  # (B, C)
     new_conv = window[:, 1:, :]
 
-    xt = xbc1[:, :d_in].reshape(b, heads, hd).to(work)
+    xt = unshard_for_split(xbc1[:, :d_in], -1, heads).reshape(b, heads, hd).to(work)
     Bt = xbc1[:, d_in : d_in + n].to(work)
     Ct = xbc1[:, d_in + n :].to(work)
     dtt = _softplus(dt[:, 0].to(work) + params["dt_bias"].to(work))  # (B,H)
     A = -torch.exp(params["A_log"].to(work))
     decay = torch.exp(dtt * A[None, :])  # (B,H)
 
-    h_new = decay[:, :, None, None] * state.h.to(work) + torch.einsum("bh,bn,bhd->bhnd", dtt, Bt, xt)
-    y = torch.einsum("bn,bhnd->bhd", Ct, h_new) + params["D"].to(work)[None, :, None] * xt
-    y = y.reshape(b, 1, d_in).to(dtype)
+    # on each rank's shards for DTensors, the batch and head_dim where the
+    # state shards them (the cache's layout, so the state never moves)
+    by_b = ("b", None)
+    y, h_new = local_apply(_decode_update, state.h.to(work), decay, dtt, Bt, Ct, xt, params["D"].to(work),
+                           axes=(("b", None, None, "w"), by_b, by_b, by_b, by_b, ("b", None, "w"), (None,)),
+                           out=[("b", None, "w"), ("b", None, None, "w")])
+    y = unshard_for_merge(y, 1, 3).reshape(b, 1, d_in).to(dtype)
     y = rms_norm(params["norm"], y * F.silu(z))
     y = y @ params["out_proj"]["w"].to(dtype)
     return y, SSMState(h_new.to(state.h.dtype), new_conv.to(state.conv.dtype))

@@ -16,18 +16,21 @@ gradient at a cast is the reference's float32 gradient rounded to
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import lm
 from repro_torch.models.layers import torch_dtype
 from repro_torch.optim import adamw_init, adamw_update, cosine_schedule, ef_update
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.tree import leaves, tree_map, unflatten
 
-__all__ = ["TrainState", "init_train_state", "loss_and_grads", "make_serve_step", "make_train_step"]
+__all__ = ["TrainState", "init_train_state", "loss_and_grads", "make_serve_step", "make_train_step", "place_batch"]
 
 _METRICS = ("loss", "ce", "z_loss", "moe_aux")
 
@@ -39,13 +42,42 @@ class TrainState(NamedTuple):
 
 
 def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, seed_or_generator: int | torch.Generator = 0,
-                     device=None) -> TrainState:
+                     device=None, mesh=None) -> TrainState:
     """Parameters drawn as `lm.init_params` draws them (``device=None`` means
     the card; ``"meta"`` allocates nothing), zero moments, step 0, and zero
-    residuals if ``tcfg.grad_compression``."""
-    params = lm.init_params(cfg, seed_or_generator, device=device)
+    residuals if ``tcfg.grad_compression``.
+
+    With a ``mesh`` the parameters, both moments and the residuals are
+    DTensors placed by `param_specs` (the reference's state shardings):
+    each rank draws the tree from the same seed, one top-level entry or
+    layer at a time, keeps its shard of it and frees the rest before the
+    next draw, so the device holds the shards and at most one whole entry
+    (an embedding table or a layer). The step counter stays a plain
+    tensor, the same on every rank."""
+    place = None
+    if mesh is not None:
+        specs = shd.param_specs(lm.init_params(cfg, device="meta"), cfg, mesh)
+
+        def place(path, tree):
+            sub = specs
+            for key in path:
+                sub = sub[key]
+            return shd.distribute(tree, mesh, sub)
+
+    params = lm.init_params(cfg, seed_or_generator, device=device, place=place)
     ef = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params) if tcfg.grad_compression else None
     return TrainState(params, adamw_init(params), ef)
+
+
+def place_batch(batch, cfg: ModelConfig, mesh):
+    """A batch of tensors laid out by `batch_specs` on ``mesh`` (each rank
+    holds the whole batch and keeps its rows); DTensors and ``mesh=None``
+    pass as they are."""
+    if mesh is None:
+        return batch
+    plain = {k: v for k, v in batch.items() if not isinstance(v, DTensor)}
+    placed = shd.distribute(plain, mesh, shd.batch_specs(cfg, mesh, plain))
+    return {k: placed.get(k, v) for k, v in batch.items()}
 
 
 def loss_and_grads(params, batch, cfg: ModelConfig, z_loss: float = 1e-4):
@@ -62,18 +94,43 @@ def loss_and_grads(params, batch, cfg: ModelConfig, z_loss: float = 1e-4):
     with torch.enable_grad():
         loss, metrics = lm.loss_fn(unflatten(params, work), batch, cfg, z_loss=z_loss)
         loss.backward()
-    grads = [w.grad for w in work]
+    grads = [_placed_as(w.grad, p) for w, p in zip(work, leaves(params))]
     return grads, {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+def _on(mesh):
+    """`use_mesh` for a step built with a mesh; without one the step runs in
+    the caller's context (the dry-run calls it under its own `use_mesh`)."""
+    return shd.use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+
+
+def _placed_as(grad, param):
+    """A DTensor gradient redistributed to its parameter's placements (the
+    data-parallel reduction of its partial sums, and a reshard where the
+    backward left another layout); a plain gradient as it is."""
+    if isinstance(grad, DTensor) and grad.placements != param.placements:
+        return grad.redistribute(param.device_mesh, param.placements)
+    return grad
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``, ``batch =
     {"tokens": (B, S) integer tensor}`` plus the family's stub inputs
     (``"images"``, ``"frames"``), which go to `lm.forward` as ``extras``;
     microbatches split every entry along its batch axis. ``state`` is
-    updated in place."""
+    updated in place.
+
+    With a ``mesh`` (a state from ``init_train_state(..., mesh=mesh)``) the
+    step runs under `use_mesh`: each (micro)batch is placed by
+    `batch_specs`, the gradients are reduced to their parameters'
+    placements, and the norm, the compression and AdamW run on DTensors
+    (the norm's sum over shards is a full reduction)."""
 
     def train_step(state: TrainState, batch):
+        with _on(mesh):
+            return _train_step(state, batch)
+
+    def _train_step(state: TrainState, batch):
         if tcfg.microbatch and tcfg.microbatch > 0:
             # gradient accumulation over microbatches of tcfg.microbatch rows, in float32
             rows = batch["tokens"].shape[0]
@@ -83,7 +140,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             grads = [torch.zeros_like(p, dtype=torch.float32) for p in leaves(state.params)]
             metrics = None
             for i in range(n_micro):
-                mb = {k: v[i * tcfg.microbatch:(i + 1) * tcfg.microbatch] for k, v in batch.items()}
+                mb = place_batch({k: v[i * tcfg.microbatch:(i + 1) * tcfg.microbatch] for k, v in batch.items()},
+                                 cfg, mesh)
                 g, m = loss_and_grads(state.params, mb, cfg, tcfg.z_loss)
                 for acc, gi in zip(grads, g):
                     acc.add_(gi)
@@ -93,7 +151,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
                 acc.div_(n_micro)
             metrics = {k: metrics[k] / n_micro for k in _METRICS}
         else:
-            grads, metrics = loss_and_grads(state.params, batch, cfg, tcfg.z_loss)
+            grads, metrics = loss_and_grads(state.params, place_batch(batch, cfg, mesh), cfg, tcfg.z_loss)
 
         if state.ef is not None:
             with torch.no_grad():
@@ -118,11 +176,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     return train_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, mesh=None):
     """Returns ``serve_step(params, state, tokens, pos, extras=None) ->
-    (logits, state)``: one `lm.decode_step`."""
+    (logits, state)``: one `lm.decode_step`, under `use_mesh` with a
+    ``mesh``."""
 
     def serve_step(params, state, tokens, pos, extras=None):
-        return lm.decode_step(params, state, tokens, pos, cfg, extras)
+        with _on(mesh):
+            return lm.decode_step(params, state, tokens, pos, cfg, extras)
 
     return serve_step

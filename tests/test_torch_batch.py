@@ -410,7 +410,7 @@ def test_executor_error_paths(mixed):
         ex.solve_batch(tp, method="spar_sink_coo", seeds=range(3), s=100.0)
     with pytest.raises(TypeError, match="not both"):
         ex.solve_batch(tp, method="spar_sink_coo", seeds=range(8), generators=[None] * 8, s=100.0)
-    with pytest.raises(NotImplementedError, match="A-11"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         BucketedExecutor(mesh=object())
     with pytest.raises(ValueError, match="gathered costs"):
         get_batched_solver("spar_sink_mf")(BatchedProblem.from_problems(tp[:1]), BatchedSketch(

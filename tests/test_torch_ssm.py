@@ -247,3 +247,85 @@ def test_prefill_and_serve_on_the_cpu(params, capsys):
     b = serve(cfg, batch=2, prompt_len=4, gen=6, seed=3, device="cpu", params=tp)
     assert a.shape == (2, 10) and np.array_equal(a, b)
     assert "tok/s" in capsys.readouterr().out
+
+
+# --------------------------------------------------------------------------
+# C-16: the intra-chunk exponent is masked before the exp
+# --------------------------------------------------------------------------
+
+
+def _with_dt_bias(jp, value):
+    """The reference's parameters with every layer's ``dt_bias`` set to ``value``."""
+    jp = jax.tree.map(lambda a: a, jp)
+    ssm_p = dict(jp["blocks"]["ssm"])
+    ssm_p["dt_bias"] = jnp.full_like(ssm_p["dt_bias"], value)
+    jp["blocks"] = dict(jp["blocks"], ssm=ssm_p)
+    return jp
+
+
+def _grads_both(jp, value):
+    """Loss gradients of both packages at ``dt_bias = value``, float32, with
+    the full config's chunk of 64 over 1 x 128 tokens: (reference leaves
+    carried over, port leaves, both losses)."""
+    jcfg, cfg = _cfgs(dtype="float32", ssm_chunk=64)
+    jp = _with_dt_bias(jp, value)
+    tp = interop.lm_params_from_numpy(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    tokens = np.random.default_rng(16).integers(0, cfg.vocab_size, (1, 128))
+    (jloss, _), jgrads = jax.value_and_grad(jlm.loss_fn, has_aux=True)(jp, {"tokens": jnp.asarray(tokens)}, jcfg)
+    grads, metrics = loss_and_grads(tp, {"tokens": torch.tensor(tokens)}, cfg)
+    want = leaves(interop.lm_params_from_numpy(jax.tree.map(np.asarray, jgrads), cfg, device="cpu"))
+    return want, grads, float(jloss), float(metrics["loss"])
+
+
+def test_c16_gradients_match_the_reference_where_it_is_finite(params):
+    """At ``dt_bias`` 0 (the init) both packages' gradients are finite and
+    agree at the float32 gradient tolerance."""
+    want, grads, jloss, loss = _grads_both(params[0], 0.0)
+    np.testing.assert_allclose(loss, jloss, rtol=1e-5)
+    for got, w in zip(grads, want, strict=True):
+        assert bool(torch.isfinite(w).all()) and bool(torch.isfinite(got).all())
+        np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=1e-4, atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("dt_bias", [1.0, 1.5, 2.0])
+def test_c16_port_gradients_stay_finite_where_the_reference_turns_nan(params, dt_bias):
+    """Past a chunk decay of ~88 the reference's exp above the diagonal
+    overflows and its backward's 0 * inf gives NaN; the port masks first.
+    Side by side: the reference NaN, the port finite; wherever the
+    reference's gradient is finite the port's agrees with it."""
+    want, grads, jloss, loss = _grads_both(params[0], dt_bias)
+    assert np.isfinite(jloss) and np.isfinite(loss)
+    np.testing.assert_allclose(loss, jloss, rtol=1e-5)
+    assert any(not bool(torch.isfinite(w).all()) for w in want), "the reference no longer turns NaN"
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    for got, w in zip(grads, want, strict=True):
+        ok = torch.isfinite(w)
+        if bool(ok.any()):
+            scale = float(w[ok].abs().max())
+            np.testing.assert_allclose(got[ok].numpy(), w[ok].numpy(), rtol=1e-4, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("dt_bias", [1.0, 1.5, 2.0])
+def test_c16_forward_is_bitwise_the_mask_after_exp(params, dt_bias):
+    """The mixer's forward at the overflowing ``dt_bias``: equal to the
+    reference's at the float32 tolerance, and its intra-chunk decay
+    ``exp(where(causal, rel, -inf))`` bitwise the reference's
+    ``where(causal, exp(rel), 0)`` on the layer's own exponents, so masking
+    first changes no bit of the forward."""
+    jcfg, cfg = _cfgs(dtype="float32", ssm_chunk=64)
+    jp = _with_dt_bias(params[0], dt_bias)
+    p = interop.lm_params_from_numpy(jax.tree.map(np.asarray, jp), cfg, device="cpu")["blocks"][0]["ssm"]
+    x = _normal((1, 128, cfg.d_model), 17)
+    want = jssm.ssm_forward(_layer0(jp), jnp.asarray(x), jcfg)
+    got = ssm.ssm_forward(p, torch.tensor(x), cfg)
+    # chunks of 64 sum eight times the smoke's terms: atol 1e-5, not 1e-6
+    _close(got, want, rtol=1e-5, atol=1e-5)
+    _, _, dt = ssm._split_proj(p, torch.tensor(x), cfg, torch.float32)
+    d = ssm._softplus(dt + p["dt_bias"]) * -torch.exp(p["A_log"])
+    cum = torch.cumsum(d.reshape(1, 2, 64, -1), dim=2)
+    rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    causal = torch.tril(torch.ones((64, 64), dtype=torch.bool))[None, None, :, :, None]
+    assert bool(torch.isinf(torch.exp(rel)).any()), "no exponent overflows at this dt_bias"
+    masked_first = torch.exp(torch.where(causal, rel, float("-inf")))
+    masked_after = torch.where(causal, torch.exp(rel), 0.0)
+    assert torch.equal(masked_first, masked_after)

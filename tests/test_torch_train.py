@@ -501,8 +501,52 @@ def test_train_cli_runs_on_the_cpu(tmp_path):
 
 
 def test_train_cli_takes_only_a_1x1_mesh():
-    with pytest.raises(ValueError, match="A-11"):
-        launch_train.main(["--arch", ARCH, "--mesh", "2x4", "--device", "cpu"])
+    """``--mesh`` is DATAxMODEL of positive sizes (any such mesh now runs:
+    tests/test_torch_distributed.py drives 2x4); anything else raises."""
+    for bad in ("2x", "0x4", "2x4x2", "two"):
+        with pytest.raises(ValueError, match="DATAxMODEL|at least 1"):
+            launch_train.main(["--arch", ARCH, "--mesh", bad, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("cli", ["train", "serve"])
+def test_cli_under_a_launcher_runs_as_its_rank(cli, monkeypatch, tmp_path):
+    """Under ``torchrun`` (``WORLD_SIZE`` and the env:// variables set) each
+    process is one rank: the CLI joins the launcher's group and starts no
+    ranks of its own. Here a launcher's world of 1: ``--mesh 2x4`` then
+    meets a group of 1 rank and says so; ``--mesh 1x1`` trains or serves."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch import serve as launch_serve
+
+    def refuse(*args):
+        raise AssertionError("a rank of a launcher started ranks of its own")
+
+    monkeypatch.setattr(launch_mesh, "launch_ranks", refuse)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    if cli == "train":
+        run = lambda shape: launch_train.main(  # noqa: E731
+            ["--arch", ARCH, "--mesh", shape, "--device", "cpu", "--steps", "2", "--seq", "16", "--batch", "2",
+             "--ckpt-dir", str(tmp_path / shape)])
+    else:
+        run = lambda shape: launch_serve.main(  # noqa: E731
+            ["--arch", ARCH, "--mesh", shape, "--device", "cpu", "--batch", "1", "--prompt-len", "2", "--gen", "2"])
+    try:
+        with pytest.raises(RuntimeError, match="the process group has 1 ranks; the mesh needs 8"):
+            run("2x4")
+        assert dist.is_initialized() and dist.get_world_size() == 1
+        run("1x1")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if cli == "train":
+        assert ckpt.latest_step(str(tmp_path / "1x1")) == 2
 
 
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path, sigterm):
