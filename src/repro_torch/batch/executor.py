@@ -11,10 +11,10 @@ problems:
   and padded with inert mass-0 rows (`BatchedProblem`);
 * each (bucket shape, method, static options) triple fills **one** entry
   of an LRU cache: the batched solver bound to its options, a callable that
-  costs nothing to build, since nothing is compiled (`compile_count` and
-  the ``executor.retrace`` counter keep the reference's names and count
-  the fills; a repeat dispatch adds none). The entry is where a CUDA graph
-  of the bucket's iterations would live (ROADMAP D-14);
+  costs nothing to build, since nothing is compiled (`compile_count` keeps
+  the reference's name and counts the fills; a repeat dispatch adds none).
+  The entry is where a CUDA graph of the bucket's iterations would live
+  (ROADMAP D-14);
 * every request comes back as an ordinary `Solution` sliced to its true
   support (an O(cap) `SparsePlan` for sketch solves), so downstream code
   cannot tell batched execution from per-problem ``solve()``.
@@ -54,6 +54,7 @@ from repro_torch.core.sinkhorn import SinkhornResult, plan_from_potentials, plan
 from repro_torch.core.spar_sink import log_plan_entries
 from repro_torch.core.sparsify import LogSparseKernelCOO
 from repro_torch.distributed.sharding import leading_axis_specs
+from repro_torch.obs import spans
 from repro_torch.obs.certify import Certificate
 from repro_torch.obs.metrics import MetricsRegistry, default_registry
 from repro_torch.obs.trace import SolverTrace
@@ -101,13 +102,16 @@ class BucketedExecutor:
     metrics:
         `repro_torch.obs.MetricsRegistry` receiving the executor telemetry
         (default `repro_torch.obs.default_registry`): counters
-        ``executor.cache_hit`` / ``executor.cache_miss`` /
-        ``executor.retrace`` (a cache fill: nothing is traced or compiled),
-        histograms ``executor.bucket_occupancy`` (live
-        fraction of the padded batch axis), ``executor.padding_waste`` (1 -
-        true elements / padded elements a dispatch) and
-        ``executor.dispatch_seconds`` (ends in a device sync on the card),
-        and the ``executor.cache_entries`` gauge.
+        ``executor.cache_hit`` / ``executor.cache_miss`` (a cache fill:
+        nothing is traced or compiled), histograms
+        ``executor.bucket_occupancy`` (live fraction of the padded batch
+        axis), ``executor.padding_waste`` (1 - true elements / padded
+        elements a dispatch) and ``executor.dispatch_seconds`` (from after
+        the sketch build, which is not synced, to the device sync that ends
+        the solve on the card), and the ``executor.cache_entries`` gauge.
+        Spans (`repro_torch.obs.spans`, when recording): each bucket's
+        ``executor.dispatch``, with ``executor.sketch`` (the bucket's
+        sketches built and padded) and the loop's spans inside.
     """
 
     def __init__(
@@ -146,7 +150,6 @@ class BucketedExecutor:
         self.metrics.counter("executor.cache_miss")
         fn = functools.partial(get_batched_solver(method), **opts)
         self._fill_count += 1
-        self.metrics.counter("executor.retrace")
         self._cache[key] = fn
         while len(self._cache) > self.cache_size:
             self._cache.popitem(last=False)
@@ -279,24 +282,27 @@ class BucketedExecutor:
         cached solve. Returns ``(BatchedResult, each element's sketch cap
         or None)``."""
         pad = _next_pow2(len(group)) - len(group)
-        bp = BatchedProblem.from_problems(
-            group + [group[-1]] * pad, bucket=bucket, materialize_cost=method not in _COSTLESS,
-        )
-        aux = None
-        if sketch_args is not None:
-            s, cap = sketch_args
-            aux = self._sketch_builder(method, solver_opts)(group, gens, s, cap)
-            if pad:
-                aux = _repeat_last(aux, pad)
         b_pad = len(group) + pad
-        true_elems = sum(p.shape[0] * p.shape[1] for p in group)
-        self.metrics.observe("executor.bucket_occupancy", len(group) / b_pad)
-        self.metrics.observe("executor.padding_waste", 1.0 - true_elems / (b_pad * bucket[0] * bucket[1]))
-        t0 = time.perf_counter()
-        br = self._compiled(bucket, method, solver_opts)(bp, aux)
-        if bp.device.type == "cuda":
-            torch.cuda.synchronize(bp.device)
-        self.metrics.observe("executor.dispatch_seconds", time.perf_counter() - t0)
+        dev = group[0].device
+        with spans.span("executor.dispatch", device=dev):
+            bp = BatchedProblem.from_problems(
+                group + [group[-1]] * pad, bucket=bucket, materialize_cost=method not in _COSTLESS,
+            )
+            aux = None
+            if sketch_args is not None:
+                s, cap = sketch_args
+                with spans.span("executor.sketch", device=dev):
+                    aux = self._sketch_builder(method, solver_opts)(group, gens, s, cap)
+                    if pad:
+                        aux = _repeat_last(aux, pad)
+            true_elems = sum(p.shape[0] * p.shape[1] for p in group)
+            self.metrics.observe("executor.bucket_occupancy", len(group) / b_pad)
+            self.metrics.observe("executor.padding_waste", 1.0 - true_elems / (b_pad * bucket[0] * bucket[1]))
+            t0 = time.perf_counter()
+            br = self._compiled(bucket, method, solver_opts)(bp, aux)
+            if bp.device.type == "cuda":
+                torch.cuda.synchronize(bp.device)
+            self.metrics.observe("executor.dispatch_seconds", time.perf_counter() - t0)
         return br, [aux.element_cap(j) if aux is not None else None for j in range(len(group))]
 
     @staticmethod

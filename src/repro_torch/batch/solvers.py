@@ -61,6 +61,7 @@ from repro_torch.core.spar_sink import (
     default_cap,
 )
 from repro_torch.kernels.ops import batched_coo_logsumexp, batched_coo_matvec, batched_coo_rmatvec, batched_offsets
+from repro_torch.obs import spans
 from repro_torch.obs.certify import Certificate, dense_certificate
 from repro_torch.obs.trace import SolverTrace, empty_trace, record_iteration, resolve_trace_len
 
@@ -151,17 +152,23 @@ def _run(state: dict, step, max_iter: int, batch: int, device) -> dict:
     ``max_iter`` iterations. Each element takes its new values only while
     its entry of ``active`` holds, so a finished element stays frozen at
     its final state; the host reads ``active.any()`` every `CHECK_EVERY`
-    iterations."""
+    iterations. Records the ``sinkhorn.loop`` span as the per-problem
+    driver does, ``element_iters`` summed over the B elements (padding
+    duplicates count as elements)."""
     active = torch.ones(batch, dtype=torch.bool, device=device)
-    for it in range(max_iter):
-        if it % CHECK_EVERY == 0 and not bool(active.any()):
-            break
-        new, cond = step(state, active)
-        state = {
-            k: torch.where(active.reshape((batch,) + (1,) * (old.ndim - 1)), new[k], old)
-            for k, old in state.items()
-        }
-        active = active & cond
+    with spans.span("sinkhorn.loop", device=device, batch=batch):
+        launched = 0
+        for it in range(max_iter):
+            if it % CHECK_EVERY == 0 and not bool(active.any()):
+                break
+            new, cond = step(state, active)
+            state = {
+                k: torch.where(active.reshape((batch,) + (1,) * (old.ndim - 1)), new[k], old)
+                for k, old in state.items()
+            }
+            active = active & cond
+            launched += 1
+        spans.annotate(launched=launched, element_iters=state["t"])
     return state
 
 
@@ -798,16 +805,17 @@ def sparse_log_potentials(
     behind the per-problem ``spar_sink_log`` and
     ``spar_sink_mf(stabilize=True)`` solvers (at B = 1) and the batched
     executor. Two flat segment-logsumexps an iteration (rows sorted; the
-    columns through ``csort``), their layouts computed once. Returns
-    ``(f, g, n_iter, err, status)``, all (B, ·); ``trace`` appends a
-    batched `SolverTrace`."""
+    columns through ``csort``), their layouts computed once (the
+    ``sinkhorn.setup`` span). Returns ``(f, g, n_iter, err, status)``, all
+    (B, ·); ``trace`` appends a batched `SolverTrace`."""
     eps_col = eps[:, None]
-    row_layout = batched_offsets(rows, n, indices_are_sorted=True)
-    if csort is None:
-        col_ids, col_layout = cols, batched_offsets(cols, m)
-    else:
-        col_ids = cols.gather(1, csort)
-        col_layout = batched_offsets(col_ids, m, indices_are_sorted=True)
+    with spans.span("sinkhorn.setup", device=rows.device):
+        row_layout = batched_offsets(rows, n, indices_are_sorted=True)
+        if csort is None:
+            col_ids, col_layout = cols, batched_offsets(cols, m)
+        else:
+            col_ids = cols.gather(1, csort)
+            col_layout = batched_offsets(col_ids, m, indices_are_sorted=True)
 
     def lse_row(g):  # (B, m) -> (B, n)
         z = logvals + (g / eps_col).gather(1, cols)

@@ -12,6 +12,7 @@ from typing import Callable
 
 from repro_torch.core.api.problems import OTProblem
 from repro_torch.core.api.solution import Solution
+from repro_torch.obs import spans
 
 __all__ = ["available_methods", "get_solver", "method_accepts", "register_solver", "solve"]
 
@@ -75,6 +76,10 @@ def solve(problem: OTProblem, method: str = "dense", *, robust: bool = False, po
     ``generator=`` (a `torch.Generator` on the problem's device) or
     ``seed=``; see `repro_torch.core.api.solvers`.
 
+    The solve records the ``solve`` span (`repro_torch.obs.spans`), with
+    the sketching solvers' ``solve.sketch``, the loop's ``sinkhorn.setup``
+    and ``sinkhorn.loop``, and ``solve.value`` under it.
+
     ``robust=True`` runs the same solve under the self-healing escalation
     ladder (`repro_torch.robust.solve_robust`) and returns a
     `repro_torch.robust.RobustSolution`: attempt 0 is this exact solve, so a
@@ -86,21 +91,22 @@ def solve(problem: OTProblem, method: str = "dense", *, robust: bool = False, po
         from repro_torch.robust.ladder import solve_robust  # local: the ladder imports this module
 
         return solve_robust(problem, method, policy=policy, **opts)
-    problem.check_valid()
-    fn = get_solver(method)
-    params = inspect.signature(fn).parameters
-    invalid = sorted(set(opts) - set(params))
-    if invalid:
-        raise TypeError(
-            f"method {method!r} got unexpected option(s) {invalid}; "
-            f"valid options: {_option_names(fn)}"
+    with spans.span("solve", device=problem.device):
+        problem.check_valid()
+        fn = get_solver(method)
+        params = inspect.signature(fn).parameters
+        invalid = sorted(set(opts) - set(params))
+        if invalid:
+            raise TypeError(
+                f"method {method!r} got unexpected option(s) {invalid}; "
+                f"valid options: {_option_names(fn)}"
+            )
+        missing = sorted(
+            n for n, p in params.items()
+            if n != "problem" and p.default is inspect.Parameter.empty and n not in opts
         )
-    missing = sorted(
-        n for n, p in params.items()
-        if n != "problem" and p.default is inspect.Parameter.empty and n not in opts
-    )
-    if missing:
-        raise TypeError(
-            f"method {method!r} requires option(s) {missing}; valid options: {_option_names(fn)}"
-        )
-    return fn(problem, **opts)
+        if missing:
+            raise TypeError(
+                f"method {method!r} requires option(s) {missing}; valid options: {_option_names(fn)}"
+            )
+        return fn(problem, **opts)

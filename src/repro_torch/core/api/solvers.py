@@ -72,6 +72,7 @@ from repro_torch.core.spar_sink import (
     default_max_blocks,
     log_plan_entries,
 )
+from repro_torch.obs import spans
 from repro_torch.obs.certify import dense_certificate, importance_ess, sparse_certificate
 from repro_torch.obs.trace import SolverTrace, sketch_diagnostics
 
@@ -265,8 +266,10 @@ def build_mf_log_sketch(
 
 def _coo_scaling_loop(problem: OTProblem, sk, tol: float, max_iter: int, trace: bool | int = False):
     """Scaling-domain Sinkhorn on the sketch: sorted segment sums, with the
-    segment offsets computed once for the whole loop."""
-    row_off, col_layout = sparsify.row_offsets(sk), sparsify.col_layout(sk)
+    segment offsets computed once for the whole loop (the ``sinkhorn.setup``
+    span)."""
+    with spans.span("sinkhorn.setup", device=problem.device):
+        row_off, col_layout = sparsify.row_offsets(sk), sparsify.col_layout(sk)
     return generic_scaling_loop(
         lambda v: sparsify.coo_matvec(sk, v, row_off),
         lambda u: sparsify.coo_rmatvec(sk, u, col_layout),
@@ -281,15 +284,19 @@ def _sparse_log_loop(problem: OTProblem, sk, tol: float, max_iter: int, trace: b
     `repro_torch.batch.solvers.sparse_log_potentials` at B = 1, so a
     batched ``spar_sink_log`` / ``spar_sink_mf(stabilize=True)`` element and
     its per-problem solve run one program (`generic_sparse_log_loop` stays
-    the generic closure form of the same iteration)."""
+    the generic closure form of the same iteration). Its inputs' set-up,
+    whose copies to the device wait for the sketch, is a ``sinkhorn.setup``
+    span."""
     from repro_torch.batch.solvers import sparse_log_potentials  # local: the batch package imports this module
 
     n, m = problem.shape
     dt, dev = problem.a.dtype, problem.device
+    with spans.span("sinkhorn.setup", device=dev):
+        loga, logb = _masked_log(problem.a)[None], _masked_log(problem.b)[None]
+        eps = torch.tensor([float(problem.eps)], dtype=dt, device=dev)
+        fe = torch.tensor([problem.fe], dtype=dt, device=dev)
     res = sparse_log_potentials(
-        sk.rows[None], sk.cols[None], sk.logvals[None], sk.csort[None],
-        _masked_log(problem.a)[None], _masked_log(problem.b)[None],
-        torch.tensor([float(problem.eps)], dtype=dt, device=dev), torch.tensor([problem.fe], dtype=dt, device=dev),
+        sk.rows[None], sk.cols[None], sk.logvals[None], sk.csort[None], loga, logb, eps, fe,
         n=n, m=m, tol=tol, max_iter=max_iter, trace=trace,
         init=None if init is None else (init[0][None], init[1][None]),
     )
@@ -408,8 +415,9 @@ def _scaling_sketch_solution(method: str, problem: OTProblem, sk, c_e, tol: floa
     gathered costs ``c_e``, and its `Solution`, whose plan is the
     `SparsePlan` ``u_i K~_e v_j`` on the kept entries."""
     res = _coo_scaling_loop(problem, sk, tol, max_iter, trace)
-    value = _coo_value(problem, sk, c_e, res)
-    cert = _sparse_cert(problem, sk, res, value, c_e, log_domain=False) if certify else None
+    with spans.span("solve.value", device=problem.device):
+        value = _coo_value(problem, sk, c_e, res)
+        cert = _sparse_cert(problem, sk, res, value, c_e, log_domain=False) if certify else None
 
     def plan() -> SparsePlan:
         return SparsePlan(sk.rows, sk.cols, res.u[sk.rows] * sk.vals * res.v[sk.cols], sk.nnz, sk.n, sk.m)
@@ -427,8 +435,9 @@ def _sparse_log_solution(method: str, problem: OTProblem, sk, c_e, tol: float, m
     """The log-domain iteration on a log-space sketch, its objective from
     the gathered costs ``c_e``, and its ``domain="log"`` `Solution`."""
     res = _sparse_log_loop(problem, sk, tol, max_iter, trace, init)
-    value = _coo_log_value(problem, sk, c_e, res)
-    cert = _sparse_cert(problem, sk, res, value, c_e, log_domain=True) if certify else None
+    with spans.span("solve.value", device=problem.device):
+        value = _coo_log_value(problem, sk, c_e, res)
+        cert = _sparse_cert(problem, sk, res, value, c_e, log_domain=True) if certify else None
     eps = float(problem.eps)
 
     def plan() -> SparsePlan:
@@ -448,13 +457,14 @@ def _dense_solution(problem: OTProblem, method: str, res, Kt: torch.Tensor, *, n
     the dense solvers the kernel that the Geometry's cache holds anyway).
     ``certify=True`` certifies the transient plan (against ``cost`` where
     the kernel is sketched)."""
-    T = plan_from_scalings(res.u, Kt, res.v)
-    value = problem.objective(T)
-    cert = None
-    if certify:
-        f, g = _potentials_from_scalings(res.u, res.v, float(problem.eps))
-        cert = _plan_cert(problem, T, value, f, g, cost=cost)
-    del T
+    with spans.span("solve.value", device=problem.device):
+        T = plan_from_scalings(res.u, Kt, res.v)
+        value = problem.objective(T)
+        cert = None
+        if certify:
+            f, g = _potentials_from_scalings(res.u, res.v, float(problem.eps))
+            cert = _plan_cert(problem, T, value, f, g, cost=cost)
+        del T
     return Solution(
         method=method, problem=problem, value=value, result=res, domain="scaling", nnz=nnz,
         certificate=cert, _plan_thunk=lambda: plan_from_scalings(res.u, Kt, res.v),
@@ -543,8 +553,9 @@ def _solve_spar_sink_coo(
     small ``eps`` the sketch underflows, and the solve stops ``degenerate``,
     or ``non_finite`` at its first iteration where a denormal ``K~ v``
     makes ``a / K~ v`` overflow; use ``spar_sink_log`` there."""
-    sk = build_coo_sketch(problem, _generator(problem, generator, seed), s, cap=cap, probs=probs,
-                          shrinkage=shrinkage)
+    with spans.span("solve.sketch", device=problem.device):
+        sk = build_coo_sketch(problem, _generator(problem, generator, seed), s, cap=cap, probs=probs,
+                              shrinkage=shrinkage)
     return _spar_sink_coo_on(problem, sk, tol, max_iter, trace=trace, certify=certify)
 
 
@@ -576,8 +587,9 @@ def _solve_spar_sink_log(
     sketch (the same support for the same generator state on OT problems)
     carried as ``logvals`` (`build_coo_log_sketch`), iterated by sorted
     segment-logsumexp on potentials. Returns a ``domain="log"`` `Solution`."""
-    sk, c_e = build_coo_log_sketch(problem, _generator(problem, generator, seed), s, cap=cap, probs=probs,
-                                   shrinkage=shrinkage)
+    with spans.span("solve.sketch", device=problem.device):
+        sk, c_e = build_coo_log_sketch(problem, _generator(problem, generator, seed), s, cap=cap, probs=probs,
+                                       shrinkage=shrinkage)
     return _sparse_log_solution("spar_sink_log", problem, sk, c_e, tol, max_iter, trace, certify, init)
 
 
@@ -625,17 +637,18 @@ def _solve_spar_sink_mf(
     if init is not None and not stabilize:
         raise ValueError("init= (warm-started potentials) requires the log-domain stabilize=True path")
     gen = _generator(problem, generator, seed)
-    if stabilize:
-        if shared_variates:
+    with spans.span("solve.sketch", device=problem.device):
+        if stabilize and shared_variates:
             sk, c_e = build_coo_log_sketch(problem, gen, s, cap=cap)
-        else:
+        elif stabilize:
             sk, c_e = build_mf_log_sketch(problem, gen, s, cap=cap)
+        elif shared_variates:
+            sk = build_coo_sketch(problem, gen, s, cap=cap)
+            c_e = geom.cost_entries(sk.rows, sk.cols)
+        else:
+            sk, c_e = build_mf_sketch(problem, gen, s, cap=cap, impl=impl)
+    if stabilize:
         return _sparse_log_solution("spar_sink_mf", problem, sk, c_e, tol, max_iter, trace, certify, init)
-    if shared_variates:
-        sk = build_coo_sketch(problem, gen, s, cap=cap)
-        c_e = geom.cost_entries(sk.rows, sk.cols)
-    else:
-        sk, c_e = build_mf_sketch(problem, gen, s, cap=cap, impl=impl)
     return _scaling_sketch_solution("spar_sink_mf", problem, sk, c_e, tol, max_iter, trace, certify)
 
 
@@ -656,8 +669,9 @@ def _solve_rand_sink(
     given as row/col factors in the geometry's dtype
     (`sparsify.uniform_prob_factors`), so no (n, m) probability array."""
     n, m = problem.shape
-    probs = sparsify.uniform_prob_factors(n, m, problem.geom.dtype, problem.device)
-    sk = build_coo_sketch(problem, _generator(problem, generator, seed), s, cap=cap, probs=probs)
+    with spans.span("solve.sketch", device=problem.device):
+        probs = sparsify.uniform_prob_factors(n, m, problem.geom.dtype, problem.device)
+        sk = build_coo_sketch(problem, _generator(problem, generator, seed), s, cap=cap, probs=probs)
     return _spar_sink_coo_on(problem, sk, tol, max_iter, method="rand_sink", trace=trace, certify=certify)
 
 
@@ -679,7 +693,8 @@ def _solve_spar_sink_dense(
     (`sparsify.sparsify_dense`: ``spar_sink_coo``'s draw), iterated by dense
     mat-vecs: the O(n^2) reference of the sketch solvers (scaling domain)."""
     gen = _generator(problem, generator, seed)
-    Kt = sparsify.sparsify_dense(gen, problem.kernel(), _resolve_probs(problem, probs, shrinkage), s)
+    with spans.span("solve.sketch", device=problem.device):
+        Kt = sparsify.sparsify_dense(gen, problem.kernel(), _resolve_probs(problem, probs, shrinkage), s)
     return _spar_sink_dense_on(problem, Kt, tol, max_iter, trace=trace, certify=certify)
 
 
@@ -723,16 +738,17 @@ def _block_ell_solution(problem: OTProblem, sk: sparsify.BlockEllKernel, tol: fl
     )
     if bad is not None and bool(bad):
         raise IndexError("the block-ELL sketch holds a column id out of range")
-    Kt = sparsify.block_ell_to_dense(sk)
-    T = plan_from_scalings(res.u, Kt, res.v)
-    value = problem.objective(T)
-    nnz = torch.sum(Kt > 0)
-    cert = None
-    if certify:
-        eps = float(problem.eps)
-        f, g = _potentials_from_scalings(res.u, res.v, eps)
-        cert = _plan_cert(problem, T, value, f, g, cost=_kernel_cost(Kt, eps))
-    del T, Kt
+    with spans.span("solve.value", device=problem.device):
+        Kt = sparsify.block_ell_to_dense(sk)
+        T = plan_from_scalings(res.u, Kt, res.v)
+        value = problem.objective(T)
+        nnz = torch.sum(Kt > 0)
+        cert = None
+        if certify:
+            eps = float(problem.eps)
+            f, g = _potentials_from_scalings(res.u, res.v, eps)
+            cert = _plan_cert(problem, T, value, f, g, cost=_kernel_cost(Kt, eps))
+        del T, Kt
     return Solution(
         method="spar_sink_block_ell", problem=problem, value=value, result=res, domain="scaling",
         nnz=nnz, certificate=cert,
@@ -790,9 +806,10 @@ def _solve_spar_sink_block_ell(
     scaling domain on the block-ELL layouts; the objective is taken on the
     densified sketch."""
     gen = _generator(problem, generator, seed)
-    sk = build_block_ell_sketch(
-        problem, gen, s, block=block, max_blocks=max_blocks, shrinkage=shrinkage, probs=probs
-    )
+    with spans.span("solve.sketch", device=problem.device):
+        sk = build_block_ell_sketch(
+            problem, gen, s, block=block, max_blocks=max_blocks, shrinkage=shrinkage, probs=probs
+        )
     return _block_ell_solution(problem, sk, tol, max_iter, trace=trace, certify=certify)
 
 

@@ -28,6 +28,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.obs import spans
 from repro_torch.obs.trace import SolverTrace, empty_trace, record_iteration, resolve_trace_len
 
 __all__ = [
@@ -123,13 +124,21 @@ def _run(state: dict, active: torch.Tensor, step, max_iter: int) -> tuple[dict, 
     """Drive ``step(state) -> (new_state, still_active)`` for at most
     ``max_iter`` iterations. Each new value is taken only where ``active``
     holds, so once the condition fails the state is frozen exactly as the
-    reference's ``while_loop`` leaves it."""
-    for it in range(max_iter):
-        if it % CHECK_EVERY == 0 and not bool(active):
-            break
-        new, cond = step(state)
-        state = {k: torch.where(active, new[k], state[k]) for k in state}
-        active = active & cond
+    reference's ``while_loop`` leaves it.
+
+    Records the ``sinkhorn.loop`` span (`repro_torch.obs.spans`) with the
+    iterations launched and the iterations the state took (``t`` at exit,
+    read only when the span is)."""
+    with spans.span("sinkhorn.loop", device=active.device, batch=1):
+        launched = 0
+        for it in range(max_iter):
+            if it % CHECK_EVERY == 0 and not bool(active):
+                break
+            new, cond = step(state)
+            state = {k: torch.where(active, new[k], state[k]) for k in state}
+            active = active & cond
+            launched += 1
+        spans.annotate(launched=launched, element_iters=state["t"])
     return state, active
 
 

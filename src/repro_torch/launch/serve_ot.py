@@ -39,6 +39,7 @@ from repro_torch.batch.problems import bucket_shape
 from repro_torch.core.api import Geometry, OTProblem, PointCloudGeometry, UOTProblem, solve
 from repro_torch.core.api.solution import Solution
 from repro_torch.core.spar_sink import s0
+from repro_torch.obs import spans
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.robust.breaker import BreakerPolicy, CircuitBreaker
 
@@ -107,6 +108,8 @@ class OTRequest:
     t_submit: float = field(default_factory=time.perf_counter)
     #: True when the over-watermark degradation overrides were applied
     degraded: bool = False
+    #: the request's trace id (`repro_torch.obs.spans`), from the spans' ids
+    id: int = field(default_factory=spans.new_id)
 
 
 class OTServer:
@@ -121,8 +124,15 @@ class OTServer:
     registry, so one ``repro_torch.obs.export()`` covers both layers): counters
     ``serve.requests`` / ``serve.batches``, the ``serve.queue_depth``
     gauge, and histograms ``serve.batch_fill`` (dispatched size /
-    ``max_batch``) and ``serve.latency_seconds`` (submit-to-resolve per
-    request, the distribution behind ``stats()``'s p50/p95/p99).
+    ``max_batch``), ``serve.latency_seconds`` (submit-to-resolve per
+    request, the distribution behind ``stats()``'s p50/p95/p99) and
+    ``serve.queue_wait_seconds`` (submit to the start of the request's
+    group's dispatch, the mean behind ``stats()["mean_queue_wait_s"]``).
+    Spans (`repro_torch.obs.spans`, when recording): ``serve.batch``
+    from a collected batch to its last future set (count ``requests``:
+    their ids; host-only, its device time is its dispatches'), and one
+    ``serve.queue`` a request over its queue wait on the server's clock,
+    its trace id the request's ``id``.
     ``certify=True`` requests additionally feed the ``serve.cert_gap`` /
     ``serve.cert_ci_width`` histograms and the ``ot_cert_gap_p95`` /
     ``ot_cert_ci_width_p95`` gauges; requests expiring past their
@@ -305,19 +315,20 @@ class OTServer:
             batch = self._collect()
             if batch is None:
                 return
-            batch = self._expire(batch)
-            # group by (method, opts, has-generator): only identical programs
-            # share a dispatch, and a request without a random source can't
-            # poison a group that has them (it fails alone with the
-            # executor's missing-generators error)
-            groups: dict[tuple, list[OTRequest]] = {}
-            for r in batch:
-                groups.setdefault(
-                    (r.method, tuple(sorted(r.opts.items())), r.generator is not None),
-                    [],
-                ).append(r)
-            for (method, _, _), reqs in groups.items():
-                self._dispatch(method, reqs)
+            with spans.span("serve.batch", requests=[r.id for r in batch]):
+                batch = self._expire(batch)
+                # group by (method, opts, has-generator): only identical programs
+                # share a dispatch, and a request without a random source can't
+                # poison a group that has them (it fails alone with the
+                # executor's missing-generators error)
+                groups: dict[tuple, list[OTRequest]] = {}
+                for r in batch:
+                    groups.setdefault(
+                        (r.method, tuple(sorted(r.opts.items())), r.generator is not None),
+                        [],
+                    ).append(r)
+                for (method, _, _), reqs in groups.items():
+                    self._dispatch(method, reqs)
 
     def _expire(self, batch: list[OTRequest]) -> list[OTRequest]:
         """Fail requests whose queue wait exceeded their ``timeout_s`` with
@@ -394,6 +405,9 @@ class OTServer:
         if all(r.generator is not None for r in reqs):
             generators = [r.generator for r in reqs]
         problems = [r.problem for r in reqs]
+        t_dispatch = self._clock()
+        for r in reqs:
+            spans.record("serve.queue", r.t_submit, t_dispatch, trace=r.id)
         attempt = 0
         while True:
             try:
@@ -427,6 +441,7 @@ class OTServer:
             self.metrics.observe("serve.batch_fill", len(reqs) / self.max_batch)
             for r in reqs:
                 self.metrics.observe("serve.latency_seconds", now - r.t_submit)
+                self.metrics.observe("serve.queue_wait_seconds", t_dispatch - r.t_submit)
             # quality-certificate telemetry (certify=True dispatches only):
             # per-request gap / CI-width histograms plus p95 gauges, so a
             # scrape sees serving quality next to serving latency
@@ -473,6 +488,7 @@ class OTServer:
     def stats(self) -> dict:
         with self.metrics.locked():
             lat = self.metrics.get_histogram("serve.latency_seconds")
+            wait = self.metrics.get_histogram("serve.queue_wait_seconds")
             requests = self.requests_served
             batches = self.batches_dispatched
         return {
@@ -482,6 +498,7 @@ class OTServer:
             "p50_latency_s": lat["p50"],
             "p95_latency_s": lat["p95"],
             "p99_latency_s": lat["p99"],
+            "mean_queue_wait_s": wait["mean"],
             "compiles": self.executor.compile_count,
         }
 

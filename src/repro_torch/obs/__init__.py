@@ -13,6 +13,16 @@ The port of ``repro.obs``, with its names:
   ``solve(..., certify=True)``.
 * `metrics`: a thread-safe `MetricsRegistry` (counters, gauges,
   p50/p95/p99 histograms) and `export` to JSON or Prometheus text.
+* `spans`: where each layer's time goes. `solve`, the sketch
+  (``solve.sketch``), the loop's set-up (``sinkhorn.setup``) and the
+  Sinkhorn loop (``sinkhorn.loop``, with its ``launched``/``element_iters``
+  counts), the objective (``solve.value``), the executor's dispatch and its
+  sketch (``executor.dispatch``, ``executor.sketch``) and the server
+  (``serve.batch``, and ``serve.queue`` a request) each record a
+  `Span`: host start and end on `time.perf_counter`, parent and trace ids,
+  CUDA events for its device time, counts. Recording is off unless inside
+  `recording()` or a `torch.profiler` session; off, a span site records
+  nothing and creates no CUDA event (guarded by tests).
 """
 from repro_torch.obs.certify import (
     DEFAULT_Z,
@@ -28,6 +38,7 @@ from repro_torch.obs.metrics import (
     default_registry,
     export,
 )
+from repro_torch.obs.spans import Span, recording
 from repro_torch.obs.trace import (
     DEFAULT_TRACE_LEN,
     Diagnostics,
@@ -50,12 +61,14 @@ __all__ = [
     "MetricsRegistry",
     "SketchStats",
     "SolverTrace",
+    "Span",
     "default_registry",
     "dense_certificate",
     "empty_trace",
     "export",
     "importance_ess",
     "record_iteration",
+    "recording",
     "resolve_trace_len",
     "sketch_diagnostics",
     "sparse_certificate",

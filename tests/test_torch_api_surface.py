@@ -65,6 +65,9 @@ PORT_EXTRAS = {
     # cross cache), but leaves them out of its __all__; the port declares
     # every public function it defines
     "repro_torch.models.attention": {"cross_attention_cached", "cross_kv"},
+    # the spans of the port's layers: the finished span and the operator's
+    # switch (the module is repro_torch.obs.spans)
+    "repro_torch.obs": {"Span", "recording"},
     # the step's gradients without the update: the parity tests and
     # chip_smoke.py hold them against the reference's and across remat
     "repro_torch.train": {"loss_and_grads"},
