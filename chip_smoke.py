@@ -33,10 +33,16 @@ failure exits non-zero):
    is first built alone (wall, device time, peak memory); the launch counts
    are set to 0 just before each ``solve`` and read just after it (each
    scaling-domain solve must launch the gathered kernel exactly once, each
-   log-domain solve its cost-only mode once, and nothing else); each run's
-   value beside the earlier kernel's (`EARLIER_RUNS`); then (b)'s log
+   log-domain solve its cost-only mode once and the gathered segment
+   logsumexp twice an iteration its loop launched, and nothing else); each
+   run's value beside the earlier kernel's (`EARLIER_RUNS`); then (b)'s log
    sketch with the plain float64 gather and with the cost-only kernel, in
-   turns (`compare_log_sketch`);
+   turns (`compare_log_sketch`); then the gathered segment logsumexp
+   (``segment_lse``) on (b)'s sketch (`check_segment_lse_kernel`): the
+   solve's launches, the plain loop's iterations and status on the same
+   sketch, both directions against the plain version at
+   `SEGMENT_LSE_RTOL`, bitwise on a repeat, its times beside its byte
+   bound and ``torch.segment_reduce``'s;
 4. accuracy at n = 8192: ``dense`` against ``log``, the mean relative
    error of ``spar_sink_mf`` against them over 4 seeds, and the block-wise
    objective of phase 5 validated against ``dense``;
@@ -112,8 +118,9 @@ failure exits non-zero):
    (``shared_variates=True``) at s = 16 s0(n) over 4 seeds, after an untimed
    warm-up each: value, iterations, status, wall (synced), relative error,
    the counts set to 0 just before each solve and read just after (the
-   shared-variates solve launches B1's cost-only mode once, the others no
-   hand kernel); the shared-variates scalings bitwise ``spar_sink_coo``'s and
+   shared-variates solve launches B1's cost-only mode once, ``spar_sink_log``
+   the gathered segment logsumexp twice an iteration its loop launched, the
+   others no hand kernel); the shared-variates scalings bitwise ``spar_sink_coo``'s and
    its value within 1e-12 relative of ``spar_sink_coo``'s, two
    ``spar_sink_coo`` solves of one seed bitwise equal, ``spar_sink_coo``'s mean
    relative error below 0.25; ``greenkhorn`` at 5(n + m) updates (with its
@@ -135,8 +142,9 @@ failure exits non-zero):
    and the traced and certified solve in turns (median of 3 each, and each
    one's device kernels and time by the profiler) and the certify step
    alone (wall, peak memory, its certificate bitwise the solve's); run (b)
-   certified (bitwise phase 3's, one cost-only launch) and warm-started
-   from its own potentials at tol / 10 (one cost-only launch); phase 6's
+   certified (bitwise phase 3's, one cost-only launch and the gathered
+   segment logsumexp's two an iteration) and warm-started from its own
+   potentials at tol / 10 (the same launches); phase 6's
    block-ELL OT solve traced and certified (bitwise phase 6's, one launch
    of each B4 product an executed iteration); every method on phase 4's
    OT problem certified (and traced where it takes ``trace=``; Greenkhorn
@@ -154,14 +162,17 @@ failure exits non-zero):
    equal, values within ``DENSE_BATCH_RTOL`` of the largest entry), and
    ``spar_sink_mf`` in both domains bitwise the per-problem ``solve(seed=i)``
    (u, v, iterations, nnz, status, value, plan entries), 16 B1 (or
-   cost-only) launches a dispatch, no cache fill on a repeat; the flat
+   cost-only, and two gathered segment logsumexps an iteration each bucket's
+   loop launched) launches a dispatch, no cache fill on a repeat; the flat
    segment sums and logsumexps of a stacked sketch bitwise each element's
-   own; (ii) `OTServer` on 64 requests of the serving CLI's kind (d = 3,
+   own, and the gathered segment logsumexp on a B = 16 log sketch bitwise
+   each element's B = 1 launch; (ii) `OTServer` on 64 requests of the serving CLI's kind (d = 3,
    sizes 2048–16384, ``spar_sink_mf`` at s = 8 s0(16384), max_batch 16,
    deadline 20 ms), scaling and log domain: a warm stream under the
    profiler (the card's busy share), then a timed stream (req/s, p50/p95/p99
    latency, mean batch, cache fills, peak memory, one B1 or cost-only
-   launch a request and nothing else; B1 and its cost-only mode on one
+   launch a request and nothing else but, in the log domain, the gathered
+   segment logsumexp; B1 and its cost-only mode on one
    served 16384-point sketch's pairs against their plain versions), then
    the same requests as 64 counted
    per-problem solves (the speedup), every served value equal to its
@@ -292,6 +303,10 @@ C_TOL = dict(rtol=2e-4, atol=1e-5)
 # relative, plus COST64_ULPS ulps of |x|^2 + |y|^2 carried through the cost
 # (`cost64_excess`: the two sum over d in different orders)
 COST64_RTOL, COST64_ULPS = 1e-13, 64
+# the gathered segment logsumexp against its plain version on the card, on
+# finite outputs, relative to max(|out|, 1): the kernel sums a segment's
+# exponentials in its own fixed order, the plain chain in cub's
+SEGMENT_LSE_RTOL = 1e-13
 # the point dimensions of phase 2's gathered-kernel cases
 GATHER_DIMS = (1, 3, 5, 8, 13)
 MATVEC_TOL = dict(rtol=2e-4, atol=2e-5)
@@ -1435,8 +1450,8 @@ def run_main_path(n: int, device, max_iter: int = 200) -> tuple[dict[str, int], 
         sketch_dev_ms = device_ms(sketch, reps=3)
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        sol = rt.solve(problem, method="spar_sink_mf", seed=0, s=s, tol=1e-6,
-                       max_iter=max_iter, stabilize=stabilize)
+        sol, launched = loop_launched(lambda: rt.solve(problem, method="spar_sink_mf", seed=0, s=s, tol=1e-6,
+                                                       max_iter=max_iter, stabilize=stabilize))
         value = float(sol.value)  # syncs
         solve_s = time.perf_counter() - t0
         counts = dict(ops.LAUNCHES)
@@ -1456,7 +1471,9 @@ def run_main_path(n: int, device, max_iter: int = 200) -> tuple[dict[str, int], 
         check((launches, cost_launches) == want,
               f"({name}) the solve launched gathered_kernel {launches} and gathered_cost {cost_launches} times, "
               f"not {want[0]} and {want[1]}")
-        check(sum(counts.values()) == 1, f"({name}) the solve launched other kernels: {counts}")
+        lse = 2 * launched if stabilize else 0
+        check(counts["segment_lse"] == lse and sum(counts.values()) == 1 + lse,
+              f"({name}) the solve launched {counts}, not one sketch kernel and {lse} segment_lse")
         results[name] = (value, int(sol.n_iter))
         if name == "a":
             scalings_a = sol.result.u, sol.result.v
@@ -1525,6 +1542,166 @@ def compare_log_sketch(problem, s: float, device, rounds: int = 2) -> None:
     dev = [(label, device_ms(fn, reps=3)) for label, fn in (("plain", plain), ("kernel", kernel))]
     log(f"log sketch n={geom.x.shape[0]} in turns (label, wall ms, peak bytes above the start): {json.dumps(rows)}; "
         f"device ms (profiler) {json.dumps(dev)}")
+
+
+def loop_launched(fn):
+    """``fn()`` with the program's spans recorded: its result and the
+    iterations that its ``sinkhorn.loop`` spans launched."""
+    from repro_torch.obs import spans
+
+    spans.clear()
+    with spans.recording():
+        out = fn()
+    launched = sum(int(sp.counts["launched"]) for sp in spans.recorded() if sp.name == "sinkhorn.loop")
+    spans.clear()
+    return out, launched
+
+
+def lse_mismatch(out, ref) -> tuple[bool, float]:
+    """Whether ``out`` holds ``-inf``, ``+inf`` and NaN where ``ref`` does,
+    and the largest ``|out - ref| / max(|ref|, 1)`` over the finite rest (an
+    output near 0 is ``mx + log(sum)`` cancelling, so its error is that of
+    terms of size 1)."""
+    import torch
+
+    same = all(torch.equal(fn(out), fn(ref)) for fn in (torch.isnan, torch.isneginf, torch.isposinf))
+    fin = torch.isfinite(ref)
+    worst = float(((out[fin] - ref[fin]).abs() / ref[fin].abs().clamp_min(1.0)).max()) if bool(fin.any()) else 0.0
+    return same, worst
+
+
+def check_segment_lse_kernel(n: int, device) -> dict:
+    """The gathered segment logsumexp (``segment_lse``, `ops.
+    bind_coo_gather_logsumexp`) on run (b)'s n = 2^17 C1 log sketch: a
+    ``spar_sink_mf(stabilize=True)`` solve with two launches an iteration its
+    loop launched and the plain loop's iterations and status on the same
+    sketch; both directions as `sparse_log_potentials` calls them against
+    the plain version at `SEGMENT_LSE_RTOL`, on zero potentials, the
+    solve's, the solve's with every fifth atom dead, and the solve's with
+    a NaN and a +inf potential, bitwise on a repeat; the times (wrapper, bound launch, device,
+    plain, and ``torch.segment_reduce``'s max and sum as the library
+    yardstick) beside the byte bound. Returns the ``kernels`` entry."""
+    import torch
+
+    import repro_torch as rt
+    from repro_torch.batch import batched_sparse_log_loop, sparse_log_potentials
+    from repro_torch.core.sinkhorn import _masked_log
+    from repro_torch.data.pointclouds import make_measures
+    from repro_torch.kernels import ops
+
+    d, eps, max_iter = 5, 0.1, 200
+    s = 4 * rt.s0(n)
+    a, b, x = make_measures("C1", n, d, seed=0)
+    problem = rt.OTProblem(rt.PointCloudGeometry(x, device=device), a, b, eps)
+    sk, _ = rt.build_mf_log_sketch(problem, torch.Generator(device=device).manual_seed(0), s)
+    rows, cols, logvals, csort = sk.rows[None], sk.cols[None], sk.logvals[None], sk.csort[None]
+    loga, logb = _masked_log(problem.a)[None], _masked_log(problem.b)[None]
+    epsv = torch.tensor([eps], dtype=loga.dtype, device=device)
+    fe = torch.tensor([problem.fe], dtype=loga.dtype, device=device)
+
+    # the solve, its launches, and the plain loop on the same sketch
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    sol, launched = loop_launched(lambda: rt.solve(problem, method="spar_sink_mf", seed=0, s=s, tol=1e-6,
+                                                   max_iter=max_iter, stabilize=True))
+    counts = {name: count for name, count in ops.LAUNCHES.items() if count}
+    check(counts == {"gathered_cost": 1, "segment_lse": 2 * launched},
+          f"segment_lse: the stabilized solve launched {counts} over {launched} launched iterations")
+    check(int(sol.nnz) == int(sk.nnz), "segment_lse: the solve's sketch is not the one built here")
+    row_off = ops.batched_offsets(rows, n, indices_are_sorted=True)[1]
+    col_off = ops.batched_offsets(cols.gather(1, csort), n, indices_are_sorted=True)[1]
+    logvals_c, rows_c = logvals.gather(1, csort), rows.gather(1, csort)
+    plain = batched_sparse_log_loop(
+        lambda g: ops.coo_gather_logsumexp_ref(row_off, logvals, cols, g, epsv),
+        lambda f: ops.coo_gather_logsumexp_ref(col_off, logvals_c, rows_c, f, epsv),
+        loga, logb, epsv, fe, tol=1e-6, max_iter=max_iter)
+    kernel = sparse_log_potentials(rows, cols, logvals, csort, loga, logb, epsv, fe, n=n, m=n, tol=1e-6,
+                                   max_iter=max_iter)
+    check(int(sol.n_iter) == int(kernel[2][0]), "segment_lse: the solve is not sparse_log_potentials on its sketch")
+    check(int(kernel[2][0]) == int(plain[2][0]) and int(kernel[4][0]) == int(plain[4][0]),
+          f"segment_lse: the kernel's loop ran {int(kernel[2][0])} iterations to status {int(kernel[4][0])}, the "
+          f"plain loop's {int(plain[2][0])} to {int(plain[4][0])}")
+    same_dead = all(torch.equal(torch.isneginf(kernel[k]), torch.isneginf(plain[k])) for k in (0, 1))
+    check(same_dead, "segment_lse: the kernel's loop and the plain loop pin different atoms to -inf")
+    pot_err = max(float((kernel[k] - plain[k])[torch.isfinite(plain[k])].abs().max()) for k in (0, 1))
+    log(f"segment_lse: spar_sink_mf(stabilize=True) n={n}: {int(sol.n_iter)} iterations ({sol.status_label}), "
+        f"{launched} launched, launches {counts}; the plain loop on its sketch {int(plain[2][0])} iterations, "
+        f"status equal, the same dead atoms, finite potentials within {pot_err!r}")
+
+    # both directions against the plain version, repeated
+    f_sol, g_sol = kernel[0], kernel[1]
+    dead = torch.zeros_like(f_sol, dtype=torch.bool)
+    dead[:, ::5] = True
+    def non_finite(y):  # NaN at the last atom, which the padding's entries gather, and +inf at atom 5
+        y = y.clone()
+        y[:, -1], y[:, 5] = math.nan, math.inf
+        return y
+
+    cases = {"zero": (torch.zeros_like(f_sol), torch.zeros_like(g_sol)), "solved": (f_sol, g_sol),
+             "dead_atoms": (f_sol.masked_fill(dead, -math.inf), g_sol.masked_fill(dead, -math.inf)),
+             "non_finite": (non_finite(f_sol), non_finite(g_sol))}
+    directions = {"row": (row_off, logvals, cols, 1), "col": (col_off, logvals_c, rows_c, 0)}
+    worst = 0.0
+    for case, pots in cases.items():
+        for direction, (off, vals, idx, side) in directions.items():
+            y = pots[side]
+            out = ops.bind_coo_gather_logsumexp(off, vals, idx, epsv)(y)
+            same, err = lse_mismatch(out, ops.coo_gather_logsumexp_ref(off, vals, idx, y, epsv))
+            check(same and err <= SEGMENT_LSE_RTOL,
+                  f"segment_lse {case} {direction}: against the plain version, non-finite places equal {same}, "
+                  f"error {err!r} (tolerance {SEGMENT_LSE_RTOL})")
+            worst = max(worst, err)
+            again = ops.bind_coo_gather_logsumexp(off, vals, idx, epsv)(y)
+            nan = torch.isnan(out)
+            check(torch.equal(nan, torch.isnan(again)) and torch.equal(out[~nan], again[~nan]),
+                  f"segment_lse {case} {direction}: two launches differ")
+    log(f"segment_lse n={n} cap={sk.cap}: both directions on zero, solved, dead-atom and non-finite potentials within "
+        f"{worst!r} of the plain version (tolerance {SEGMENT_LSE_RTOL}, relative to max(|out|, 1)), non-finite "
+        f"places equal; two launches bitwise equal")
+
+    # times as the loop calls it (the solved potentials), one iteration's pair
+    z_r = (logvals + (g_sol / epsv[:, None]).gather(1, cols)).reshape(-1)
+    z_c = (logvals_c + (f_sol / epsv[:, None]).gather(1, rows_c)).reshape(-1)
+    rows_out = {}
+    for direction, off, vals, idx, y, z in (("row", row_off, logvals, cols, g_sol, z_r),
+                                            ("col", col_off, logvals_c, rows_c, f_sol, z_c)):
+        bound = ops.bind_coo_gather_logsumexp(off, vals, idx, epsv)
+
+        def library():
+            mx = torch.segment_reduce(z, "max", offsets=off, initial=-math.inf)
+            return mx, torch.segment_reduce(z, "sum", offsets=off, initial=0.0)
+
+        rows_out[direction] = dict(
+            ms=time_ms(lambda: ops.bind_coo_gather_logsumexp(off, vals, idx, epsv)(y)),
+            bare_ms=time_ms(lambda: bound(y)),
+            device_ms=device_ms(lambda: bound(y)),
+            plain_ms=time_ms(lambda: ops.coo_gather_logsumexp_ref(off, vals, idx, y, epsv), reps=10),
+            library_ms=time_ms(library, reps=10))
+    # least bytes of a half-step: each slot's value and index once, the
+    # offsets once, the potentials read once and the output written once
+    # (float64, int64 ids); the loop's pair is both directions
+    nbytes = 2 * (sk.cap * 16 + (n + 1) * 8 + n * 8 + n * 8)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    pair = {k: rows_out["row"][k] + rows_out["col"][k] for k in rows_out["row"] if rows_out["row"][k] is not None
+            and rows_out["col"][k] is not None}
+    log(f"segment_lse times an iteration (row + col): {json.dumps(pair)}, by direction {json.dumps(rows_out)}; "
+        f"bound {bound_ms!r} ms ({nbytes} bytes)")
+    log_ptxas("segment_lse")
+    return {
+        "name": "segment_lse",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_lse.cu",
+        "replaces": None,  # no TPU kernel: the reference leaves these segment reductions to XLA
+        "launches": None,  # filled in from the main path's run
+        "max_abs_err": worst,
+        "ms": pair["ms"],
+        "bare_ms": pair["bare_ms"],
+        "device_ms": pair.get("device_ms"),
+        "plain_ms": pair["plain_ms"],
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": pair["library_ms"],  # torch.segment_reduce's max and sum, which the port does not call
+    }
 
 
 # --------------------------------------------------------------------------
@@ -1686,9 +1863,11 @@ def run_sketch_solvers(label: str, problem, v_ref: float, solvers, s: float, see
         solve_synced(problem, method, seed=seeds, s=s, tol=1e-6, max_iter=1000, **opts)
         runs, first = [], None
         for seed in range(seeds):
-            sol, value, wall, launches = solve_synced(problem, method, seed=seed, s=s, tol=1e-6, max_iter=1000,
-                                                      **opts)
+            (sol, value, wall, launches), launched = loop_launched(lambda: solve_synced(
+                problem, method, seed=seed, s=s, tol=1e-6, max_iter=1000, **opts))
             want = {"gathered_cost": 1} if opts.get("shared_variates") else {}
+            if sol.domain == "log":
+                want["segment_lse"] = 2 * launched
             check(launches == want, f"phase 9 {label} {method}: the solve launched {launches}, not {want}")
             check(math.isfinite(value), f"phase 9 {label} {method} seed {seed}: value {value} is not finite")
             runs.append(dict(seed=seed, value=value, n_iter=int(sol.n_iter), status=sol.status_label,
@@ -2719,14 +2898,16 @@ def traced_main_path(total: dict, n: int, device, runs: dict, scalings_a, value_
     del sk, c_e, res, alone
     torch.cuda.empty_cache()
     # (2) run (b) certified, then warm-started from its own potentials
-    sol_b, value_b, wall_b, launches = counted_solve(total, ot, "spar_sink_mf", stabilize=True, certify=True,
-                                                     **opts)
-    check(launches == {"gathered_cost": 1}, f"phase 10 (b): the certified solve launched {launches}")
+    (sol_b, value_b, wall_b, launches), launched = loop_launched(lambda: counted_solve(
+        total, ot, "spar_sink_mf", stabilize=True, certify=True, **opts))
+    want = {"gathered_cost": 1, "segment_lse": 2 * launched}
+    check(launches == want, f"phase 10 (b): the certified solve launched {launches}, not {want}")
     check((value_b, int(sol_b.n_iter)) == runs["b"], "phase 10 (b): the certified solve is not phase 3's run (b)")
     cert_b = check_certificate("phase 10 (b)", sol_b.certificate, sampled=True)
-    warm, value_w, wall_w, launches = counted_solve(
-        total, ot, "spar_sink_mf", stabilize=True, certify=True, init=sol_b.potentials, **dict(opts, tol=1e-7))
-    check(launches == {"gathered_cost": 1}, f"phase 10 (b) warm: the solve launched {launches}")
+    (warm, value_w, wall_w, launches), launched = loop_launched(lambda: counted_solve(
+        total, ot, "spar_sink_mf", stabilize=True, certify=True, init=sol_b.potentials, **dict(opts, tol=1e-7)))
+    want = {"gathered_cost": 1, "segment_lse": 2 * launched}
+    check(launches == want, f"phase 10 (b) warm: the solve launched {launches}, not {want}")
     check(math.isfinite(value_w), "phase 10 (b) warm: value not finite")
     cert_w = check_certificate("phase 10 (b) warm", warm.certificate, sampled=True)
     log("phase 10 (b) " + json.dumps(dict(
@@ -2995,6 +3176,43 @@ def segment_locality(sketch, log_space: bool) -> None:
         f"element's own, both directions")
 
 
+def kernel_locality(sketch) -> None:
+    """The gathered segment logsumexp (`ops.bind_coo_gather_logsumexp`) on a
+    stacked log sketch of B elements against a B = 1 launch on each
+    element's own slots (its own alignment): bitwise, both directions as
+    `sparse_log_potentials` calls them."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    B, cap = sketch.rows.shape
+    dev = sketch.rows.device
+    n = int(sketch.rows.max()) + 1
+    m = int(sketch.cols.max()) + 1
+    gen = torch.Generator(device=dev).manual_seed(6)
+    f = torch.rand((B, n), dtype=torch.float64, device=dev, generator=gen) - 0.5
+    g = torch.rand((B, m), dtype=torch.float64, device=dev, generator=gen) - 0.5
+    eps = torch.linspace(0.05, 0.2, B, dtype=torch.float64, device=dev)
+
+    def halves(rows, cols, vals, csort, f, g, eps):
+        row_off = ops.batched_offsets(rows, n, indices_are_sorted=True)[1]
+        col_off = ops.batched_offsets(cols.gather(1, csort), m, indices_are_sorted=True)[1]
+        return (ops.bind_coo_gather_logsumexp(row_off, vals, cols, eps)(g),
+                ops.bind_coo_gather_logsumexp(col_off, vals.gather(1, csort), rows.gather(1, csort), eps)(f))
+
+    row, col = halves(sketch.rows, sketch.cols, sketch.vals, sketch.csort, f, g, eps)
+    for j in range(B):
+        c = sketch.element_cap(j)
+        own = (sketch.rows[j:j + 1, :c], sketch.cols[j:j + 1, :c], sketch.vals[j:j + 1, :c], sketch.csort[j:j + 1, :c])
+        r_j, c_j = halves(*own, f[j:j + 1], g[j:j + 1], eps[j:j + 1])
+        check(torch.equal(row[j], r_j[0]) and torch.equal(col[j], c_j[0]),
+              f"phase 11: the gathered segment logsumexp of element {j} in the batch differs from its B = 1 launch "
+              f"(max abs {float((row[j] - r_j[0]).abs().nan_to_num().max())!r}, "
+              f"{float((col[j] - c_j[0]).abs().nan_to_num().max())!r})")
+    log(f"phase 11: the gathered segment logsumexp over B={B} x cap={cap} bitwise each element's B = 1 launch, both "
+        f"directions")
+
+
 def executor_parity(total: dict, device) -> None:
     """Phase 11 (i)."""
     import torch
@@ -3027,10 +3245,13 @@ def executor_parity(total: dict, device) -> None:
     for stabilize in (False, True):
         opts = dict(method="spar_sink_mf", seeds=seeds, s=s, tol=1e-6, max_iter=2000, stabilize=stabilize)
         before = ex.compile_count
-        sols, wall, counts = batched_dispatch(total, ex, problems, **opts)
+        (sols, wall, counts), launched = loop_launched(lambda: batched_dispatch(total, ex, problems, **opts))
         fills = ex.compile_count - before
         want = {"gathered_cost" if stabilize else "gathered_kernel": 16}
-        check(counts == want, f"phase 11 spar_sink_mf stabilize={stabilize}: the dispatch launched {counts}")
+        if stabilize:  # two an iteration of each bucket's batched loop
+            want["segment_lse"] = 2 * launched
+        check(counts == want, f"phase 11 spar_sink_mf stabilize={stabilize}: the dispatch launched {counts}, not "
+              f"{want}")
         for i, (p, sol) in enumerate(zip(problems, sols)):
             ref = rt.solve(p, method="spar_sink_mf", seed=i, s=s, tol=1e-6, max_iter=2000, stabilize=stabilize)
             same = (torch.equal(sol.result.u, ref.result.u) and torch.equal(sol.result.v, ref.result.v)
@@ -3051,6 +3272,8 @@ def executor_parity(total: dict, device) -> None:
         group = [p for p in problems if p.shape[0] > 1024]
         gens = [torch.Generator(device=device).manual_seed(i) for i in range(len(group))]
         segment_locality(build(group, gens, s), stabilize)
+        if stabilize:
+            kernel_locality(build(problems, [torch.Generator(device=device).manual_seed(i) for i in seeds], s))
     log(f"phase 11 (i) executor metrics: hits {ex.metrics.get_counter('executor.cache_hit')!r}, misses "
         f"{ex.metrics.get_counter('executor.cache_miss')!r}, entries {ex.metrics.get_gauge('executor.cache_entries')!r}, "
         f"occupancy {json.dumps(ex.metrics.get_histogram('executor.bucket_occupancy'))}, dispatch s "
@@ -3180,7 +3403,9 @@ def serve_streams(total: dict, device) -> dict:
         statuses = sorted({sol.status_label for sol in sols})
         del sols
         name = "gathered_cost" if stabilize else "gathered_kernel"
-        check(counts[name] == SERVE_REQUESTS and sum(counts.values()) == SERVE_REQUESTS,
+        lse = counts["segment_lse"]  # two an iteration of each batched loop in the log domain
+        check(counts[name] == SERVE_REQUESTS and sum(counts.values()) == SERVE_REQUESTS + lse
+              and (lse > 0 and lse % 2 == 0 if stabilize else lse == 0),
               f"phase 11 (ii) stabilize={stabilize}: the timed stream launched {counts}")
         check(all(math.isfinite(v) for v in values), f"phase 11 (ii) stabilize={stabilize}: a value is not finite")
         torch.cuda.synchronize()
@@ -3202,7 +3427,8 @@ def serve_streams(total: dict, device) -> dict:
                    occupancy=server.metrics.get_histogram("executor.bucket_occupancy")["mean"],
                    padding_waste=server.metrics.get_histogram("executor.padding_waste")["mean"], serial_s=serial_s,
                    serial_req_per_s=SERVE_REQUESTS / serial_s, speedup=serial_s / wall,
-                   n_iter_min=min(iters), n_iter_max=max(iters), statuses=statuses, launches=counts[name])
+                   n_iter_min=min(iters), n_iter_max=max(iters), statuses=statuses, launches=counts[name],
+                   segment_lse_launches=lse)
         log("phase 11 (ii) served " + json.dumps(row))
         log(f"phase 11 (ii) stabilize={stabilize}: every served value equals the per-problem solve(seed=i)'s")
         rows[stabilize] = row
@@ -5139,6 +5365,7 @@ def main() -> int:
     online_entries = check_online_kernels(n, device, clock)
     launches, main_runs, scalings_a = run_main_path(n, device)
     value_a = main_runs["a"][0]
+    entries.append(check_segment_lse_kernel(n, device))
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
     v_log = check_accuracy(8192, device)

@@ -60,7 +60,12 @@ from repro_torch.core.spar_sink import (
     coo_objective_uot_log_entries,
     default_cap,
 )
-from repro_torch.kernels.ops import batched_coo_logsumexp, batched_coo_matvec, batched_coo_rmatvec, batched_offsets
+from repro_torch.kernels.ops import (
+    batched_coo_matvec,
+    batched_coo_rmatvec,
+    batched_offsets,
+    bind_coo_gather_logsumexp,
+)
 from repro_torch.obs import spans
 from repro_torch.obs.certify import Certificate, dense_certificate
 from repro_torch.obs.trace import SolverTrace, empty_trace, record_iteration, resolve_trace_len
@@ -804,26 +809,23 @@ def sparse_log_potentials(
     """Log-domain potentials of B sketched problems: the one iteration
     behind the per-problem ``spar_sink_log`` and
     ``spar_sink_mf(stabilize=True)`` solvers (at B = 1) and the batched
-    executor. Two flat segment-logsumexps an iteration (rows sorted; the
-    columns through ``csort``), their layouts computed once (the
-    ``sinkhorn.setup`` span). Returns ``(f, g, n_iter, err, status)``, all
-    (B, ·); ``trace`` appends a batched `SolverTrace`."""
-    eps_col = eps[:, None]
+    executor. Two gathered segment-logsumexps an iteration
+    (`bind_coo_gather_logsumexp`: one kernel launch each on the card), rows
+    in the sketch's sorted order and columns over column-ordered copies of
+    the values and row ids; the copies, both layouts and their checks are
+    made once before the loop (the ``sinkhorn.setup`` span). Returns
+    ``(f, g, n_iter, err, status)``, all (B, ·); ``trace`` appends a
+    batched `SolverTrace`."""
     with spans.span("sinkhorn.setup", device=rows.device):
-        row_layout = batched_offsets(rows, n, indices_are_sorted=True)
+        row_offsets = batched_offsets(rows, n, indices_are_sorted=True)[1]
         if csort is None:
-            col_ids, col_layout = cols, batched_offsets(cols, m)
+            order, col_offsets = batched_offsets(cols, m)
+            logvals_c, rows_c = (x.reshape(-1)[order].reshape(x.shape) for x in (logvals, rows))
         else:
-            col_ids = cols.gather(1, csort)
-            col_layout = batched_offsets(col_ids, m, indices_are_sorted=True)
-
-    def lse_row(g):  # (B, m) -> (B, n)
-        z = logvals + (g / eps_col).gather(1, cols)
-        return batched_coo_logsumexp(rows, z, n=n, layout=row_layout)
-
-    def lse_col(f):  # (B, n) -> (B, m)
-        z = logvals + (f / eps_col).gather(1, rows)
-        return batched_coo_logsumexp(col_ids, z if csort is None else z.gather(1, csort), n=m, layout=col_layout)
+            col_offsets = batched_offsets(cols.gather(1, csort), m, indices_are_sorted=True)[1]
+            logvals_c, rows_c = logvals.gather(1, csort), rows.gather(1, csort)
+        lse_row = bind_coo_gather_logsumexp(row_offsets, logvals, cols, eps)  # (B, m) -> (B, n)
+        lse_col = bind_coo_gather_logsumexp(col_offsets, logvals_c, rows_c, eps)  # (B, n) -> (B, m)
 
     return batched_sparse_log_loop(lse_row, lse_col, loga, logb, eps, fe, tol=tol, max_iter=max_iter,
                                    trace=trace, init=init)

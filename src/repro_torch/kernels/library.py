@@ -29,7 +29,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "CSRC", "LAUNCHES", "launch", "load", "ptxas_log", "reset_launch_counts"]
+__all__ = ["BUILD_DIR", "CSRC", "LAUNCHES", "launch", "launcher", "load", "ptxas_log", "reset_launch_counts"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -62,6 +62,8 @@ SIGNATURES = {
     "lru_scan_fwd": (_P, _P, _P, _I64, _I64, _I64, _I64, _P, _P),
     # a, h, g, da (or null), db, batch, seq, width, chunk, part, stream
     "lru_scan_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P),
+    # offsets, vals, idx, y, eps, segments, per_elem, n_other, out, stream
+    "segment_lse": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P),
 }
 
 #: kernel name -> number of launches since the last `reset_launch_counts`
@@ -163,18 +165,31 @@ def load() -> ctypes.CDLL:
 def launch(name: str, device: torch.device, *args) -> None:
     """Call ``<name>_launch(*args, stream)`` on ``device`` with PyTorch's
     current stream there; raise if it returns a CUDA error, else count one
-    launch of ``name``. On the current device it enters no device context,
-    whose switch and restore cost several microseconds of host time a
-    launch (``chip_smoke.py --compare-with`` times both)."""
+    launch of ``name``."""
+    launcher(name, device)(*args)
+
+
+def launcher(name: str, device: torch.device):
+    """`launch` with the library function, the device and PyTorch's current
+    stream there resolved once, here: the returned ``call(*args)`` makes
+    the call, raises and counts, as many times as a loop on that stream
+    launches ``name``. On the current device a call enters no device
+    context, whose switch and restore cost several microseconds of host
+    time a launch (``chip_smoke.py --compare-with`` times both)."""
     lib = load()
     fn = getattr(lib, f"{name}_launch")
-    current = torch.cuda.current_device()
-    if device.index is None or device.index == current:
-        code = fn(*args, torch.cuda.current_stream(current).cuda_stream)
-    else:
-        with torch.cuda.device(device):
-            code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if code != 0:
-        msg = lib.cuda_error_string(code).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} (cudaError {code})")
-    LAUNCHES[name] += 1
+    stream = torch.cuda.current_stream(device).cuda_stream
+    elsewhere = device.index is not None and device.index != torch.cuda.current_device()
+
+    def call(*args) -> None:
+        if elsewhere:
+            with torch.cuda.device(device):
+                code = fn(*args, stream)
+        else:
+            code = fn(*args, stream)
+        if code != 0:
+            msg = lib.cuda_error_string(code).decode()
+            raise RuntimeError(f"{name} launch failed: {msg} (cudaError {code})")
+        LAUNCHES[name] += 1
+
+    return call

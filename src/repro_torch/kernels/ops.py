@@ -2,8 +2,10 @@
 
 A wrapper checks what it is given, launches its kernel on PyTorch's current
 stream for CUDA tensors, and counts the launch (`LAUNCHES`). For CPU tensors
-it runs the kernel's plain version (`repro_torch.kernels.ref`); nothing else
-selects the plain version, and a failed build or launch raises.
+it runs the kernel's plain version (`repro_torch.kernels.ref`; that of
+`bind_coo_gather_logsumexp` sits beside it, a composition of this module's
+reductions); nothing else selects the plain version, and a failed build or
+launch raises.
 
 The reference's TPU tiling arguments (``block_n``, ``block_m``, ``block_s``)
 and ``interpret`` are not carried over, nor is its padding of the inputs to
@@ -18,6 +20,8 @@ tensors pass through the same `local_map` unchanged. A DTensor placed
 otherwise than the wrapper declares raises: no wrapper redistributes.
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -38,6 +42,7 @@ from repro_torch.kernels.ref import (
     online_lse_ref,
     online_matvec_ref,
 )
+from repro_torch.kernels.segment_lse import segment_lse_launcher
 
 __all__ = [
     "LAUNCHES",
@@ -48,6 +53,8 @@ __all__ = [
     "block_ell_matvec",
     "block_ell_sketch_matvec",
     "block_ell_sketch_rmatvec",
+    "bind_coo_gather_logsumexp",
+    "coo_gather_logsumexp_ref",
     "fused_sinkhorn_solve",
     "gathered_cost",
     "gathered_kernel",
@@ -433,7 +440,7 @@ def batched_block_ell_matvec(
 
 
 # ---------------------------------------------------------------------------
-# Batched padded-COO reductions: plain torch on every device (no kernel)
+# Batched padded-COO reductions: plain torch on every device
 # ---------------------------------------------------------------------------
 
 
@@ -525,6 +532,85 @@ def batched_coo_logsumexp(
         raise TypeError("batched_coo_logsumexp requires n (the output width)")
     order, offsets = batched_offsets(idx, n, indices_are_sorted=indices_are_sorted) if layout is None else layout
     return segment_logsumexp(_flat(z, order), offsets).reshape(idx.shape[0], n)
+
+
+# ---------------------------------------------------------------------------
+# The log-domain half-step: gather and segment logsumexp in one kernel
+# ---------------------------------------------------------------------------
+
+
+def coo_gather_logsumexp_ref(offsets: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor, y: torch.Tensor,
+                             eps: torch.Tensor) -> torch.Tensor:
+    """The plain version of `bind_coo_gather_logsumexp`'s half-step: the
+    gather, the add and `batched_coo_logsumexp`'s reduction (`repro_torch.core.sparsify.
+    segment_logsumexp`) over the flat layout, as the log-domain loop ran
+    them before the kernel, so its outputs keep their bits."""
+    from repro_torch.core.sparsify import segment_logsumexp
+
+    z = vals + (y / eps[:, None]).gather(1, idx)
+    return segment_logsumexp(z.reshape(-1), offsets).reshape(vals.shape[0], -1)
+
+
+def bind_coo_gather_logsumexp(offsets: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
+                              eps: torch.Tensor) -> Callable[[torch.Tensor], torch.Tensor]:
+    """One half-step of the log-domain sparse Sinkhorn loop
+    (`repro_torch.batch.solvers.sparse_log_potentials`) on B padded-COO
+    sketches, bound to its layout: returns ``y -> out`` with
+    ``out[b, i] = log sum_e exp(vals[b, e] + y[b, idx[b, e]] / eps[b])``
+    over the entries e of flat segment ``b * n + i``.
+
+    ``vals`` and ``idx`` are (B, cap) in segment order (the column
+    direction takes column-ordered copies), ``offsets`` the ``(B * n + 1,)``
+    int64 offsets of their flat segments (`batched_offsets`) and ``eps``
+    (B,); ``y`` is the (B, n_other) potentials, ``out`` (B, n). ``-inf``
+    entries are inert, empty and all-dead segments come out exactly
+    ``-inf``, a NaN in a segment makes it NaN.
+
+    The layout is checked, and on the card made contiguous and bound to the
+    kernel's launch, once, here: the loop calls the result with new
+    potentials every half-step, and it checks no more of ``y`` than its
+    rank, batch, device, and on the card its type and contiguity. CUDA
+    tensors go through the CUDA kernel (``csrc/segment_lse.cu``), one
+    counted launch a call that checks no index (the sketch's are in range),
+    all in float64 (a ``TypeError`` for another type). Each segment's sum
+    runs in one order fixed by its own entries, so an element of a batch
+    gets bitwise its B = 1 output; against the plain version the order
+    differs (``chip_smoke.py`` holds them at 1e-13 relative). CPU tensors go
+    through `coo_gather_logsumexp_ref`."""
+    name = "bind_coo_gather_logsumexp"
+    bsz = vals.shape[0]
+    if not (vals.ndim == 2 and idx.shape == vals.shape and tuple(eps.shape) == (bsz,) and offsets.ndim == 1
+            and bsz > 0 and (offsets.shape[0] - 1) % bsz == 0):
+        raise ValueError(f"{name}: expected offsets (B * n + 1,), vals and idx (B, cap) and eps (B,); got "
+                         f"{tuple(offsets.shape)}, {tuple(vals.shape)}, {tuple(idx.shape)}, {tuple(eps.shape)}")
+    if offsets.dtype != torch.int64 or idx.dtype != torch.int64:
+        raise TypeError(f"{name}: offsets and idx must be int64; got {offsets.dtype}, {idx.dtype}")
+    dev = _one_device(name, offsets, vals, idx, eps)
+    on_card = dev.type != "cpu"
+    if on_card and (vals.dtype != torch.float64 or eps.dtype != torch.float64):
+        raise TypeError(f"{name}: the kernel takes float64 values and eps; got {vals.dtype}, {eps.dtype}")
+
+    def check(y: torch.Tensor) -> None:
+        if y.ndim != 2 or y.shape[0] != bsz or y.device != dev:
+            raise ValueError(f"{name}: expected y (B, n_other) with B = {bsz} on {dev}; got {tuple(y.shape)} on "
+                             f"{y.device}")
+        if on_card and (y.dtype != torch.float64 or not y.is_contiguous()):
+            raise TypeError(f"{name}: the kernel takes contiguous float64 potentials; got {y.dtype}, "
+                            f"contiguous {y.is_contiguous()}")
+
+    if not on_card:
+        def plain(y: torch.Tensor) -> torch.Tensor:
+            check(y)
+            return coo_gather_logsumexp_ref(offsets, vals, idx, y, eps)
+
+        return plain
+    run = segment_lse_launcher(*(t.contiguous() for t in (offsets, vals, idx, eps)))
+
+    def kernel(y: torch.Tensor) -> torch.Tensor:
+        check(y)
+        return run(y)
+
+    return kernel
 
 
 def _path_dtype(t: torch.Tensor) -> torch.Tensor:

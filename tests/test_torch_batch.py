@@ -15,6 +15,8 @@
   LRU eviction); the error paths of the reference's executor test; the
   per-problem log-domain sketch solvers on `sparse_log_potentials` at B = 1.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -348,6 +350,170 @@ def test_flat_segment_reductions_bitwise_per_element(log_space):
             empty = 0.0
         assert torch.equal(row[j, :n], r) and torch.equal(col[j, :m], cc)
         assert bool(torch.all(row[j, n:] == empty)) and bool(torch.all(col[j, m:] == empty))
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape, NaN places and bits elsewhere (signed zeros too)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    nan = torch.isnan(a)
+    bits = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(torch.where(nan, 0.0, a).view(bits),
+                                                             torch.where(nan, 0.0, b).view(bits))
+
+
+def _lse_layout(case: str):
+    """A (B, cap) log-space layout for `bind_coo_gather_logsumexp`: rows sorted
+    within each element, columns in random order, each element's padding
+    at its row n - 1 and column m - 1 with ``-inf`` values; potentials
+    ``f`` (B, n), ``g`` (B, m) and ``eps`` (B,). ``case`` plants what the
+    loop must carry: ``-inf`` values or potentials, empty and all-dead
+    segments, a NaN entry; ``batch3`` is three matrix-free log sketches of
+    unequal caps, stacked with padding slots."""
+    gen = torch.Generator().manual_seed(17)
+    if case == "batch3":
+        tp = _port(_data(3, (40, 64, 100), 6), point_cloud=True)
+        s = 6 * s0(100)
+        caps = [tb.solvers.default_cap(s) - k for k in (0, 40, 90)]
+        sk = tb.build_batched_mf_log_sketch(tp, [torch.Generator().manual_seed(i) for i in range(3)], s, cap=caps)
+        assert [sk.element_cap(j) for j in range(3)] == caps and sk.cap > caps[1]
+        rows, cols, vals, csort = sk.rows, sk.cols, sk.vals, sk.csort
+        n = m = 100
+    else:
+        n, m, cap, live = 12, 10, 64, 50
+        rows = torch.sort(torch.randint(0, n - 1, (2, cap), generator=gen), dim=1).values
+        rows[:, live:] = n - 1  # the padding
+        rows[rows == 3] = 2  # row 3 empty
+        cols = torch.randint(0, m, (2, cap), generator=gen)
+        cols[:, live:] = m - 1
+        vals = -torch.rand((2, cap), dtype=torch.float64, generator=gen) * 3.0
+        vals[:, live:] = -torch.inf
+        vals[rows == 5] = -torch.inf  # row 5 all dead (if drawn)
+        csort = torch.argsort(cols, dim=1, stable=True)
+    B = rows.shape[0]
+    f = torch.rand((B, n), dtype=torch.float64, generator=gen) - 0.5
+    g = torch.rand((B, m), dtype=torch.float64, generator=gen) - 0.5
+    eps = torch.tensor([0.1, 0.07, 0.3][:B], dtype=torch.float64)
+    if case == "neginf_vals":
+        vals[:, ::7] = -torch.inf
+    elif case == "neginf_potentials":
+        f[:, ::3] = -torch.inf
+        g[:, ::4] = -torch.inf
+    elif case == "nan":
+        vals[0, 4] = torch.nan
+    return rows, cols, vals, csort, f, g, eps, n, m
+
+
+@pytest.mark.parametrize("direction", ["row", "col"])
+@pytest.mark.parametrize("case", ["finite", "neginf_vals", "neginf_potentials", "nan", "batch3"])
+def test_gather_logsumexp_plain_is_the_composition(case, direction):
+    """`bind_coo_gather_logsumexp` on CPU tensors is bitwise the log-domain
+    loop's earlier composition: the row direction on the sketch's order,
+    the column direction on column-ordered copies of the values and row ids
+    against the gather of ``z`` through ``csort``; with the plain chain's
+    ``-inf`` and NaN semantics and one counted launch of nothing."""
+    from repro_torch.kernels.ops import batched_offsets
+
+    rows, cols, vals, csort, f, g, eps, n, m = _lse_layout(case)
+    before = dict(ops.LAUNCHES)
+    if direction == "row":
+        seg, idx, y, width = rows, cols, g, n
+        old = ops.batched_coo_logsumexp(rows, vals + (g / eps[:, None]).gather(1, cols), n=n, indices_are_sorted=True)
+        new = ops.bind_coo_gather_logsumexp(batched_offsets(rows, n, indices_are_sorted=True)[1], vals, cols, eps)(g)
+        vals_s = vals
+    else:
+        seg, idx, y, width = cols.gather(1, csort), rows.gather(1, csort), f, m
+        z = (vals + (f / eps[:, None]).gather(1, rows)).gather(1, csort)
+        old = ops.batched_coo_logsumexp(seg, z, n=m, indices_are_sorted=True)
+        vals_s = vals.gather(1, csort)
+        new = ops.bind_coo_gather_logsumexp(batched_offsets(seg, m, indices_are_sorted=True)[1], vals_s, idx, eps)(f)
+    assert ops.LAUNCHES == before
+    assert new.shape == (rows.shape[0], width) and _same_bits(new, old)
+    z = vals_s + (y / eps[:, None]).gather(1, idx)
+    for b in range(rows.shape[0]):
+        for i in range(width):
+            zs = z[b][seg[b] == i]
+            if bool(torch.isnan(zs).any()):
+                assert bool(torch.isnan(new[b, i]))
+            elif bool(torch.all(torch.isneginf(zs))):  # empty or all dead
+                assert float(new[b, i]) == -math.inf
+            else:
+                assert float(new[b, i]) == pytest.approx(float(torch.logsumexp(zs, 0)), rel=1e-12)
+    if case == "nan":
+        assert int(torch.isnan(new).sum()) == 1
+
+
+@pytest.mark.parametrize("direction", ["row", "col"])
+@pytest.mark.parametrize("case", ["finite", "neginf_vals", "neginf_potentials", "nan", "batch3"])
+def test_bound_gather_logsumexp_is_the_wrapper(case, direction):
+    """`bind_coo_gather_logsumexp`'s half-step, as the loop holds it over
+    one layout, gives bitwise a fresh binding's output for each potentials
+    it is called with, in turn: a call keeps nothing of the one before."""
+    from repro_torch.kernels.ops import batched_offsets
+
+    rows, cols, vals, csort, f, g, eps, n, m = _lse_layout(case)
+    if direction == "row":
+        off, vals_s, idx, y = batched_offsets(rows, n, indices_are_sorted=True)[1], vals, cols, g
+    else:
+        off = batched_offsets(cols.gather(1, csort), m, indices_are_sorted=True)[1]
+        vals_s, idx, y = vals.gather(1, csort), rows.gather(1, csort), f
+    bound = ops.bind_coo_gather_logsumexp(off, vals_s, idx, eps)
+    for pot in (y, y.flip(1), torch.zeros_like(y), y):
+        assert _same_bits(bound(pot), ops.bind_coo_gather_logsumexp(off, vals_s, idx, eps)(pot))
+
+
+def test_gather_logsumexp_checks_its_inputs():
+    rows, cols, vals, csort, f, g, eps, n, m = _lse_layout("finite")
+    off = ops.batched_offsets(rows, n, indices_are_sorted=True)[1]
+    with pytest.raises(ValueError, match="vals and idx"):
+        ops.bind_coo_gather_logsumexp(off, vals, cols[:, :-1], eps)(g)
+    with pytest.raises(ValueError, match="eps"):
+        ops.bind_coo_gather_logsumexp(off, vals, cols, eps[:1])(g)
+    with pytest.raises(ValueError, match="B \\* n"):
+        ops.bind_coo_gather_logsumexp(off[:-1], vals, cols, eps)(g)
+    with pytest.raises(TypeError, match="int64"):
+        ops.bind_coo_gather_logsumexp(off, vals, cols.to(torch.int32), eps)(g)
+    bound = ops.bind_coo_gather_logsumexp(off, vals, cols, eps)
+    with pytest.raises(ValueError, match="B = 2"):
+        bound(g[:1])
+    with pytest.raises(ValueError, match="B = 2"):
+        bound(g.reshape(-1))
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_sparse_log_potentials_is_the_composed_loop(B):
+    """`sparse_log_potentials` (the gathered wrapper on column-ordered
+    copies) returns bitwise the ``(f, g, n_iter, status)`` of
+    `batched_sparse_log_loop` driven by closures over the earlier
+    composition: ``batched_coo_logsumexp`` on the gathered ``z``, the column
+    direction through ``csort``."""
+    from repro_torch.core.sinkhorn import _masked_log
+    from repro_torch.kernels.ops import batched_offsets
+
+    data = _data(B, (40, 64, 100), 8)
+    tp = _port(data, point_cloud=True)
+    bp = BatchedProblem.from_problems(tp, materialize_cost=False)
+    _, n, m = bp.shape
+    sk = tb.build_batched_mf_log_sketch(tp, [torch.Generator().manual_seed(i) for i in range(B)], 8 * s0(100))
+    loga, logb = _masked_log(bp.a), _masked_log(bp.b)
+    new = tb.sparse_log_potentials(sk.rows, sk.cols, sk.vals, sk.csort, loga, logb, bp.eps, bp.fe, n=n, m=m,
+                                   tol=1e-9, max_iter=300)
+    row_layout = batched_offsets(sk.rows, n, indices_are_sorted=True)
+    col_ids = sk.cols.gather(1, sk.csort)
+    col_layout = batched_offsets(col_ids, m, indices_are_sorted=True)
+    eps_col = bp.eps[:, None]
+
+    def lse_row(g):
+        return ops.batched_coo_logsumexp(sk.rows, sk.vals + (g / eps_col).gather(1, sk.cols), n=n, layout=row_layout)
+
+    def lse_col(f):
+        z = (sk.vals + (f / eps_col).gather(1, sk.rows)).gather(1, sk.csort)
+        return ops.batched_coo_logsumexp(col_ids, z, n=m, layout=col_layout)
+
+    old = tb.batched_sparse_log_loop(lse_row, lse_col, loga, logb, bp.eps, bp.fe, tol=1e-9, max_iter=300)
+    for k in (0, 1, 2, 4):  # f, g, n_iter, status
+        assert torch.equal(new[k], old[k]), k
+    assert bool(torch.all(new[2] > 1))
 
 
 def test_in_bucket_sketch_bitwise_for_exact_fit():
