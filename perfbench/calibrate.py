@@ -4,7 +4,10 @@
     python3 perfbench/calibrate.py --workload mf_n131072.ot --seeds 11,12,13 --seconds 4
     # the control (the reference one precision down) in the program's place
     python3 perfbench/calibrate.py --workload mf_n131072.ot --seeds 11,12,13 --control
-    # a fault planted in the program (see perfbench/harness/faults.py)
+    # one of a kind's several controls, by name (lm_decode: ssm_lm.CONTROLS)
+    python3 perfbench/calibrate.py --workload mamba2_130m.gen_b512 --seeds 11,12,13 --control fp8_products
+    # a fault planted in the program (the kind's FAULTS: perfbench/harness/faults.py
+    # for the Spar-Sink kinds)
     python3 perfbench/calibrate.py --workload mf_n131072.ot --seeds 11,12,13 --seconds 4 --fault half_draw
     # an open-loop cell at other rates (the knee sweep)
     python3 perfbench/calibrate.py --workload serve_mf.poisson --seeds 11 --seconds 30 --rates 16,20,24
@@ -12,9 +15,10 @@
     python3 perfbench/calibrate.py --workload mf_n131072.ot --config sparsink_mf_c1_n131072 --traffic ot --seeds 11
 
 Every seed runs in this one process and prints one JSON line: the largest
-reading of each number over the judged estimates, the cell's end-to-end
-numbers, and what was attempted and failed. The benchmark's runs never run
-this.
+reading of each number over the judged answers, the cell's end-to-end
+numbers, and what was attempted and failed. The numbers, the control and
+the faults are the cell's kind's (its ``REFERENCE``, ``control`` and
+``FAULTS``). The benchmark's runs never run this.
 """
 import time
 
@@ -32,32 +36,12 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 
-def control_items(cell, seed: int, device) -> list:
-    """The cell's judged estimates, made by the control on the inputs the
-    cell would give the program for ``seed``."""
-    import torch
-
-    from perfbench.harness.cells import domain, inputs_of, make_pool
-    from perfbench.harness.inputs import derive
-    from perfbench.reference.control import control_estimate
-
-    pool = make_pool(cell, seed, device)
-    s = cell.kind.budget(cell.config)
-    tol, max_iter = cell.kind.stops(cell)
-    items = []
-    for k in cell.kind.sample(cell, seed, pool):
-        inp = inputs_of(pool[k % len(pool)], cell.config, s)
-        gen = torch.Generator(device=device).manual_seed(derive(seed, "control", k))
-        items.append((inp, control_estimate(inp, gen, domain(cell), tol, max_iter)))
-    return items
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description="Readings for the limits and rates of a cell.")
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", required=True, help="comma-separated")
     ap.add_argument("--seconds", type=float, default=4.0)
-    ap.add_argument("--control", action="store_true")
+    ap.add_argument("--control", nargs="?", const=True, default=False, help="optionally the control's name")
     ap.add_argument("--fault", default=None)
     ap.add_argument("--rates", default=None, help="comma-separated offered rates of an open-loop cell")
     ap.add_argument("--sample-from", type=int, default=None, help="draw the judged requests among the first N")
@@ -68,7 +52,6 @@ def main() -> int:
     import torch
 
     from perfbench.harness.cells import run_cell
-    from perfbench.harness.faults import planted
     from perfbench.harness.judge import readings
     from perfbench.harness.manifest import Cell, load
 
@@ -90,13 +73,14 @@ def main() -> int:
             if rate is not None:
                 cell.traffic["rate_per_s"] = rate
             t0 = time.perf_counter()
+            named = [args.control] if isinstance(args.control, str) else []
             out = {"workload": args.workload, "seed": seed, "rate": rate,
-                   "mode": "control" if args.control else (args.fault or "program")}
+                   "mode": "control" if args.control else (args.fault or "program"), "control": named}
             if args.control:
-                items = control_items(cell, seed, device)
+                items = cell.kind.control(cell, seed, device, *named)
                 out["control_s"] = time.perf_counter() - t0
             else:
-                with planted(args.fault) if args.fault else nullcontext():
+                with cell.kind.FAULTS.planted(args.fault) if args.fault else nullcontext():
                     run = run_cell(cell, seed, args.seconds, False, device, time.perf_counter())
                     run.release()
                     run.release = None
@@ -108,7 +92,7 @@ def main() -> int:
                 del run
             torch.cuda.empty_cache()
             t1 = time.perf_counter()
-            out["readings"] = readings(items)
+            out["readings"] = readings(items, cell.kind.REFERENCE)
             out["judge_s"] = time.perf_counter() - t1
             out["card"] = torch.cuda.get_device_name(device)
             print(json.dumps(out), flush=True)

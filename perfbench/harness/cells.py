@@ -3,7 +3,8 @@ inputs made from the seed, and the step from a solution to the outputs
 the judge reads.
 
 A cell's configuration names its kind (``perfbench/kinds/<kind>.py``,
-which sets up and drives the window) and its pattern
+which sets up and drives the window and names the reference, the control
+and the faults of its answers) and its pattern
 (``perfbench/patterns/<pattern>.py``, which makes the problems); its
 traffic names its discipline (``perfbench/disciplines/<discipline>.py``,
 the loop that offers the work). `perfbench.harness.manifest.Cell` finds
@@ -19,12 +20,12 @@ from dataclasses import dataclass, field
 
 import torch
 
-from perfbench.harness.inputs import generator
+from perfbench.harness.inputs import derive, generator
 from perfbench.harness.trace import DeviceTrace, Spans
 from perfbench.reference.spar_sink import Estimate, Inputs
 
-__all__ = ["LATE_S", "Run", "domain", "estimate_of", "inputs_of", "make_pool", "open_window", "peak", "problem_of",
-           "run_cell", "sync", "warm_profiler"]
+__all__ = ["LATE_S", "Run", "control_items", "domain", "estimate_of", "inputs_of", "make_pool", "open_window", "peak",
+           "problem_of", "run_cell", "sync", "warm_profiler"]
 
 #: how long past the window's close an answer is waited for
 LATE_S = 60.0
@@ -90,6 +91,23 @@ def estimate_of(sol, inputs: Inputs, dom: str, tol: float, max_iter: int) -> tup
     f, g = sol.potentials
     return inputs, Estimate(plan.rows[:nnz].clone(), plan.cols[:nnz].clone(), plan.vals[:nnz].clone(),
                             f.clone(), g.clone(), float(sol.value), dom, tol, max_iter)
+
+
+def control_items(cell, seed: int, device) -> list:
+    """A Spar-Sink cell's judged estimates made by the control
+    (`perfbench.reference.control`) on the inputs the cell would give the
+    program for ``seed``."""
+    from perfbench.reference.control import control_estimate
+
+    pool = make_pool(cell, seed, device)
+    s = cell.kind.budget(cell.config)
+    tol, max_iter = cell.kind.stops(cell)
+    items = []
+    for k in cell.kind.sample(cell, seed, pool):
+        inp = inputs_of(pool[k % len(pool)], cell.config, s)
+        gen = torch.Generator(device=device).manual_seed(derive(seed, "control", k))
+        items.append((inp, control_estimate(inp, gen, domain(cell), tol, max_iter)))
+    return items
 
 
 def warm_profiler(device) -> None:

@@ -87,7 +87,7 @@ def main(argv: list[str], t_start: float) -> int:
     run.release()
     run.release = None
     torch.cuda.empty_cache()
-    correct, checks = judge(cell.limits, run)
+    correct, checks = judge(cell, run)
     line = result_line(cell, run, correct, checks, bool(args.trace), torch.cuda.get_device_name(device), cell.chips)
     print(json.dumps(line))
     return 0

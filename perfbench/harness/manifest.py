@@ -4,9 +4,9 @@ Everything that belongs to one configuration, traffic mix, cell or
 per-layer metric sits in a file of its own, found by name:
 
 * ``configs[].file``: the deployment. Its ``kind`` names the module that
-  sets up and drives a run (``perfbench/kinds/<kind>.py``), its
-  ``pattern`` the module that makes the problems
-  (``perfbench/patterns/<pattern>.py``);
+  sets up and drives a run and names the reference that judges it
+  (``perfbench/kinds/<kind>.py``), its ``pattern`` the module that makes
+  the problems or the weights (``perfbench/patterns/<pattern>.py``);
 * ``perfbench/traffic/<traffic>.json``: the mix. Its ``discipline`` names
   the loop that offers the work (``perfbench/disciplines/<discipline>.py``);
 * ``perfbench/limits/<workload>.json``: the limits of the cell's
@@ -109,10 +109,6 @@ class Cell:
               CONFIG_NOTES)
         _keys(traffic_file, self.traffic, frozenset({"discipline"}) | self.kind.TRAFFIC_KEYS | self.discipline.KEYS,
               TRAFFIC_NOTES)
-        from perfbench.reference.spar_sink import COSTS
-
-        if self.config["cost"] not in COSTS:
-            raise ValueError(f"{config_file}: cost {self.config['cost']!r}; the reference judges {COSTS}")
         self.kind.check(self)
         self.chips = int(self.entry["chips"])
         self.end_to_end = [m for m in manifest["end_to_end"] if _applies(m, workload)]

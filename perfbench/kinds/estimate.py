@@ -14,8 +14,10 @@ import traceback
 
 import torch
 
+from perfbench.harness import faults as FAULTS
 from perfbench.harness.cells import (
     Run,
+    control_items as control,
     domain,
     estimate_of,
     inputs_of,
@@ -27,8 +29,10 @@ from perfbench.harness.cells import (
 )
 from perfbench.harness.inputs import derive, generator, judged, s0
 from perfbench.harness.trace import DeviceTrace
+from perfbench.reference import spar_sink as REFERENCE
 
-__all__ = ["CONFIG_KEYS", "TRAFFIC_KEYS", "budget", "check", "run", "sample", "stops"]
+__all__ = ["CONFIG_KEYS", "FAULTS", "REFERENCE", "TRAFFIC_KEYS", "budget", "check", "control", "run", "sample",
+           "stops"]
 
 #: the configuration keys this kind reads (its pattern reads its own)
 CONFIG_KEYS = frozenset({"method", "cost", "eps", "n", "d", "s_mult"})
@@ -41,6 +45,8 @@ METHODS = ("spar_sink_mf",)
 def check(cell) -> None:
     if cell.config["method"] not in METHODS:
         raise ValueError(f"{cell.name}: method {cell.config['method']!r}; this kind drives {METHODS}")
+    if cell.config["cost"] not in REFERENCE.COSTS:
+        raise ValueError(f"{cell.name}: cost {cell.config['cost']!r}; the reference judges {REFERENCE.COSTS}")
 
 
 def budget(cfg: dict) -> float:

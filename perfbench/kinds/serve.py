@@ -18,9 +18,11 @@ from dataclasses import dataclass, field
 
 import torch
 
+from perfbench.harness import faults as FAULTS
 from perfbench.harness.cells import (
     LATE_S,
     Run,
+    control_items as control,
     domain,
     estimate_of,
     inputs_of,
@@ -32,8 +34,10 @@ from perfbench.harness.cells import (
 )
 from perfbench.harness.inputs import derive, judged, s0
 from perfbench.harness.trace import DeviceTrace
+from perfbench.reference import spar_sink as REFERENCE
 
-__all__ = ["CONFIG_KEYS", "TRAFFIC_KEYS", "budget", "check", "run", "sample", "stops"]
+__all__ = ["CONFIG_KEYS", "FAULTS", "REFERENCE", "TRAFFIC_KEYS", "budget", "check", "control", "run", "sample",
+           "stops"]
 
 #: the configuration keys this kind reads (its pattern reads its own)
 CONFIG_KEYS = frozenset({"method", "cost", "eps", "sizes", "s_mult", "s_of", "tol", "max_iter", "max_batch",
@@ -46,6 +50,8 @@ METHODS = ("spar_sink_mf",)
 def check(cell) -> None:
     if cell.config["method"] not in METHODS:
         raise ValueError(f"{cell.name}: method {cell.config['method']!r}; this kind drives {METHODS}")
+    if cell.config["cost"] not in REFERENCE.COSTS:
+        raise ValueError(f"{cell.name}: cost {cell.config['cost']!r}; the reference judges {REFERENCE.COSTS}")
 
 
 def budget(cfg: dict) -> float:

@@ -38,6 +38,7 @@ __all__ = [
     "COSTS",
     "Estimate",
     "Inputs",
+    "NUMBERS",
     "judge",
     "log_rates",
     "objective",
@@ -49,6 +50,8 @@ __all__ = [
 
 #: the costs this reference computes
 COSTS = ("sqeuclidean",)
+#: the numbers `judge` gives an estimate, in the order they are printed
+NUMBERS = ("sketch_gap", "draw_dev", "marginal_gap", "value_gap")
 #: rows, columns, and the bins of the draw check
 DRAW_BINS = 32
 
@@ -250,7 +253,7 @@ def judge(inp: Inputs, est: Estimate) -> dict[str, float]:
     shapes_ok = est.f.shape == inp.a.shape and est.g.shape == inp.b.shape
     if (rows.numel() == 0 or not math.isfinite(est.value) or not shapes_ok
             or int(rows.max()) >= n or int(cols.max()) >= n):
-        return dict.fromkeys(("sketch_gap", "draw_dev", "marginal_gap", "value_gap"), math.inf)
+        return dict.fromkeys(NUMBERS, math.inf)
     costs = sq_costs(inp.x, inp.x, rows, cols)
     logw = log_rates(inp, rows, cols, costs)
     # the program's sketched value of each kept pair, implied by its plan

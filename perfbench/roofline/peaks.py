@@ -6,3 +6,4 @@ HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 34e12  # outside the tensor cores
 FP32_FLOPS = 67e12  # outside the tensor cores
 MEMORY_BYTES = 80e9
+BF16_FLOPS = 989.4e12  # dense, on the tensor cores
